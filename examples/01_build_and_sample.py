@@ -2,7 +2,7 @@
 
 The minimum end-to-end loop of the framework (the reference's QCMRF.py +
 run_experiment.py workflow, /root/reference/QCMRF.py:199-243, in a dozen
-lines). Runs on CPU or TPU.
+lines). Runs on CPU or GPU.
 
     python examples/01_build_and_sample.py
 """
@@ -13,7 +13,7 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 # QCMRF_EXAMPLE_SMOKE: the test tier's reduced-size run (fewer shots,
-# CPU pinned pre-backend-init so the suite never touches the TPU)
+# CPU pinned pre-backend-init so the tests never touch a GPU)
 SMOKE = bool(os.environ.get("QCMRF_EXAMPLE_SMOKE"))
 
 import jax

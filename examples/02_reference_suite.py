@@ -15,7 +15,7 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 # QCMRF_EXAMPLE_SMOKE: the test tier's reduced-size run (fewer shots,
-# CPU pinned pre-backend-init so the suite never touches the TPU)
+# CPU pinned pre-backend-init so the tests never touch a GPU)
 SMOKE = bool(os.environ.get("QCMRF_EXAMPLE_SMOKE"))
 if SMOKE:
     import jax

@@ -2,7 +2,7 @@
 
 The reference caps at 10 qubits (SURVEY.md §5) — its largest stored
 circuit. This example runs a 2^24-state grid MRF with the state table
-sharded over every visible device (one TPU chip, a multi-chip mesh, or a
+sharded over every visible device (one GPU, several GPUs, or a
 virtual CPU mesh), and estimates ln Z two ways:
 
 * exactly, with the psum-logsumexp sharded state-table pass;

@@ -20,8 +20,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 
-# the suite models are tiny (<= 10 qubits): host CPU beats paying a
-# remote TPU compile per circuit shape (same choice as the whisker CLI's
+# the suite models are tiny (<= 10 qubits): host CPU beats paying an
+# accelerator compile per circuit shape (same choice as the whisker CLI's
 # --platform default). Must happen before any backend initialization.
 jax.config.update("jax_platforms", "cpu")
 

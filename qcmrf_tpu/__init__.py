@@ -1,11 +1,12 @@
-"""qcmrf_tpu — a TPU-native quantum-circuit-MRF framework.
+"""qcmrf_tpu — a quantum-circuit-MRF framework in JAX, run on the GPU.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the reference
+Built from scratch in JAX/XLA with the capabilities of the reference
 ``np84/qcmrf`` research artifact (circuit compiler, statevector simulation,
-exact classical inference, evaluation + figures), re-designed TPU-first:
-vectorized gathers instead of per-state Python loops, fused diagonal-phase
-kernels instead of AND-gate workspace qubits, ICI-sharded statevectors for
-models beyond single-chip memory, and autodiff-based MRF training.
+exact classical inference, evaluation + figures), re-designed for an
+accelerator: vectorized gathers instead of per-state Python loops, fused
+diagonal-phase passes instead of AND-gate workspace qubits, statevectors
+sharded over a device mesh for models beyond one device's memory, and
+autodiff-based MRF training.
 """
 
 from qcmrf_tpu.circuits.compiler import QCMRF, compile_qcmrf

@@ -223,19 +223,26 @@ def compile_qcmrf(
     with_measurements: bool = True,
     with_barriers: bool = False,
     name: str = "QCMRF",
+    gamma=None,
 ) -> Circuit:
-    """Emit the QCMRF circuit IR for an MRF (see module docstring)."""
+    """Emit the QCMRF circuit IR for an MRF (see module docstring).
+
+    ``gamma`` (optional, may be traced) replaces the angles derived from
+    ``mrf.theta`` and keeps every phase block, zero angles included, so
+    one gate structure serves a vmapped batch of parameter draws."""
     n = mrf.n
     K = mrf.num_cliques
     num_main = n + 1  # variables + workspace (QCMRF.py:202)
     nq = n + K + 1
     qc = Circuit(num_qubits=nq, num_clbits=nq, name=name)
 
-    theta = np.asarray(mrf.theta, dtype=np.float64)
-    cparams.validate_theta_domain(theta)
-    gamma = np.asarray(
-        cparams.theta_to_gamma(theta, float(mrf.beta)), dtype=np.float64
-    )
+    skip_zero = gamma is None
+    if skip_zero:
+        theta = np.asarray(mrf.theta, dtype=np.float64)
+        cparams.validate_theta_domain(theta)
+        gamma = np.asarray(
+            cparams.theta_to_gamma(theta, float(mrf.beta)),
+            dtype=np.float64)
 
     for q in range(n):
         qc.h(q)
@@ -250,7 +257,8 @@ def compile_qcmrf(
         # cU_C as a list of fused per-state diagonal phases
         blocks = []  # (flags, angle)
         for y in itertools.product([0, 1], repeat=len(C)):
-            if not np.isclose(gamma[i], 0):  # skip rule, QCMRF.py:223
+            # skip rule, QCMRF.py:223
+            if not skip_zero or not np.isclose(gamma[i], 0):
                 flags = tuple(int(b) * 2 - 1 for b in y)
                 blocks.append((flags, 2.0 * gamma[i]))
             i += 1

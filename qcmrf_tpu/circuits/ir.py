@@ -1,6 +1,6 @@
 """A small circuit IR for the QCMRF compiler and simulator.
 
-TPU-native replacement for qiskit's circuit IR (the reference subclasses
+JAX replacement for qiskit's circuit IR (the reference subclasses
 ``qiskit.QuantumCircuit``, /root/reference/QCMRF.py:13). The IR is a flat,
 hashable gate list over integer qubits — no parameter binding, no registers —
 designed so that (a) the simulator can consume it with compiler-friendly
@@ -36,6 +36,15 @@ PRIMITIVE_2Q = ("cx",)
 PARAM_2Q = ("cp",)
 
 
+def _param(p):
+    """A gate angle as a float; a traced angle (a vmapped batch of
+    circuits sharing one structure, sim.batch) is kept as it is."""
+    try:
+        return float(p)
+    except TypeError:  # jax's concretization error subclasses it
+        return p
+
+
 @dataclasses.dataclass(frozen=True)
 class Gate:
     name: str
@@ -48,7 +57,7 @@ class Gate:
     def __post_init__(self):
         object.__setattr__(self, "qubits", tuple(int(q) for q in self.qubits))
         object.__setattr__(
-            self, "params", tuple(float(p) for p in self.params)
+            self, "params", tuple(_param(p) for p in self.params)
         )
         object.__setattr__(self, "flags", tuple(int(f) for f in self.flags))
         object.__setattr__(self, "clbits", tuple(int(c) for c in self.clbits))

@@ -1,6 +1,6 @@
 """Lowering pass: high-level QCMRF IR -> hardware basis ``[cx, id, rz, sx, x]``.
 
-TPU-native replacement for the qiskit transpiler call of the reference
+Replacement for the qiskit transpiler call of the reference
 (``transpile(CIRCS, basis_gates=['cx','id','rz','sx','x'])``,
 /root/reference/run_experiment.py:52) and for qiskit's ``AND`` library gate
 (QCMRF.py:9, :224-227). Pure circuit-IR rewriting — exact (tracks global

@@ -1,6 +1,6 @@
 """Evaluation harness: fidelity / success-rate tables over a result suite.
 
-TPU-native re-implementation of the reference's ``eval.py``
+Re-implementation of the reference's ``eval.py``
 (/root/reference/eval.py): same CLI semantics (``--results``, ``--scale``,
 ``--mode file|gibbs|pam``), same result-format sniffing (dict with
 ``quasi_dists`` -> hardware with norm 1; bare list -> raw counts with norm

@@ -20,8 +20,8 @@ diagnosable estimator built from pieces the framework already has:
 ln Z_hat = n ln 2 + logsumexp(log w) − ln M is consistent as M → ∞ and
 its importance weights carry their own error bar: the effective sample
 size and a delta-method standard error are returned alongside.
-TPU notes: the per-site updates are O(K) scalar gathers vmapped over M
-chains — a (M,)-wide gather/VPU program, compiling once per structure
+Device notes: the per-site updates are O(K) scalar gathers vmapped over
+M chains — an (M,)-wide elementwise program, compiling once per structure
 (same profile as the bit-array Gibbs sampler it reuses).
 """
 
@@ -103,7 +103,7 @@ def _build_mesh_run(cliques, n, chains_per_dev, num_temps,
                     sweeps_per_temp, mesh):
     """Compiled mesh program: every device anneals its own
     ``chains_per_dev`` chains (key fold_in by device index — chains are
-    IID, so sharding them is pure data parallelism with zero ICI until
+    IID, so sharding them is pure data parallelism with no communication until
     the host-side weight pooling), log-weights and final bits return
     sharded along the chain axis."""
     from jax.sharding import PartitionSpec as P

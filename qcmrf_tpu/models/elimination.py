@@ -3,7 +3,7 @@
 The reference's native oracle (`kiopto_native`) computes partition
 functions by native exact inference (SURVEY.md §1 L0); our C++ engine
 (qcmrf_tpu/native) replicates that host-side with bucket elimination. This
-module is the **TPU-side** counterpart: because the clique structure is
+module is the **device-side** counterpart: because the clique structure is
 static, the entire elimination schedule — which factors combine, every
 intermediate factor's scope and shape — is known at trace time, so the
 whole algorithm lowers to a fixed sequence of broadcast-adds and
@@ -329,7 +329,7 @@ def clique_marginals(mrf: MRF) -> jax.Array:
 # Max-product elimination with traceback: exact MAP (and, with Gumbel
 # perturbations, perturb-and-MAP sampling) at any n for bounded treewidth.
 # The native engine does the same host-side (kiopto.cpp qk_map/qk_sample_pam);
-# this is the jit-able, vmap-able TPU version.
+# this is the jit-able, vmap-able device version.
 # --------------------------------------------------------------------------
 
 

@@ -14,42 +14,24 @@ are ``x = blk * 2^cb + offset`` — so no flat state id is ever formed:
 bits below the chunk cut come from the int32 ``offset`` vector and bits
 above it from the int32 scalar ``blk``, which keeps every in-sweep
 integer below int32 past the 2^31-state-id limit (same block-unit
-device as the streaming lnZ/MAP kernels, ops/kernels.py::_split_logpot).
+device as the streaming lnZ/MAP sweeps, ops/kernels.py::_split_logpot).
 Width cap: ``n - cb <= 31`` ⇒ n <= 47 structurally; sweep time is the
 practical bound (~2^n work).
 
 The reference delegates all exact inference to ``kiopto_native``
 (/root/reference/eval.py:84-93) and never trains; this extends the
-oracle surface rather than mirroring it. The sweep is pure XLA (the
-per-chunk work is dense FMA chains XLA fuses well); the lnZ forward
-pass reuses :func:`qcmrf_tpu.ops.kernels.log_partition`, which streams
-through the Pallas block-split kernel at large n.
+oracle surface rather than mirroring it. The lnZ forward pass reuses
+:func:`qcmrf_tpu.ops.kernels.log_partition`.
 
 The sweep accumulates the DEDUPLICATED BIT-MONOMIAL basis, not the
-theta-layout masks — and it rides the MXU: every size-1/size-2 monomial
+theta-layout masks, as matrix products: every size-1/size-2 monomial
 moment is one entry of the weighted Gram matrix ``B^T diag(w) B`` of
 the used variables' bit planes (``b^2 = b`` puts the singletons on the
-diagonal), and the log-potential folds into the same contractions. For
-structures whose cliques have <= 4 distinct variables the whole sweep
-is a Pallas kernel (:func:`qcmrf_tpu.ops.kernels.gram_moments_call`):
-bit planes build from iota in VMEM with lane-packed state groups
-filling the 128-wide MXU tile, size-3/4 monomials become plain Gram
-entries through PRODUCT lanes added by an in-kernel selector relayout
-``B' = (B S1) * (B S2)`` (2 extra exact-bf16 passes, only when such
-cliques exist), three systolic contractions per block, HBM traffic =
-one (128, 128) output total — measured 8.1x faster on the chip than
-the masks-then-reduce form it replaced. Two further measured steps: the
-contractions split only the INEXACT dot operand into 3 bf16 terms
-(ops/kernels.py::_dot_exact; B and E are exact 0/1, so the result is
-HIGHEST-identical in half the MXU passes — 17.9 -> 13.3 ms per K24
-n=24 sweep), and under differentiation the forward lnZ and the
-gradient's moments come from ONE fused running-max sweep
-(:func:`lnz_and_moments_streaming`) instead of two — a K27
-complete-graph exact-MLE training step runs at ~93 ms (was 157 with
-two separate sweeps, 490 at round start). The XLA Gram sweep below
-remains the general fallback (higher-order subsets, n past the
-kernel's shift guard). Theta-layout moments are recovered once per
-sweep by the inverse-Moebius doubling (:func:`_masks_from_monomials`).
+diagonal), and the log-potential folds into the same contractions (see
+:func:`_chunk_mono_partials`). The products run at HIGHEST precision:
+a default-precision float32 product on the GPU is a TF32 one, about
+three decimal digits. Theta-layout moments are recovered once per sweep
+by the inverse-Moebius doubling (:func:`_masks_from_monomials`).
 """
 
 from __future__ import annotations
@@ -136,10 +118,9 @@ def _monomial_layout(cliques: tuple) -> _MonomialLayout:
 class _GramLayout(
     collections.namedtuple(
         "_GramLayout",
-        "vars sing_g pair_g pair_iu pair_iv hi_g hi_cols "
-        "width prod_src lane_pairs kernel_ok")):
+        "vars sing_g pair_g pair_iu pair_iv hi_g hi_cols")):
     """Host-side split of the monomial basis by subset size, for the
-    MXU form of the sweep (:func:`_chunk_mono_partials`):
+    matrix-product form of the sweep (:func:`_chunk_mono_partials`):
 
     * size 0 — ``sum w`` (the lane accumulator);
     * size 1 and 2 — ONE weighted Gram matrix ``B^T diag(w) B`` over the
@@ -149,16 +130,7 @@ class _GramLayout(
       monomial; ``(pair_g, pair_iu, pair_iv)`` index the size-2 subsets
       (``iu == iv`` for the degenerate repeated-variable pairs).
     * size >= 3 — ``hi_g[j]``'s column is the product of plane indices
-      ``hi_cols[j]`` (per-column lane dots like the size-0 row).
-
-    The PALLAS kernel form additionally factors every monomial into a
-    product of TWO group lanes so it is one Gram entry: ``lane_pairs[g]``
-    is monomial ``g``'s (row, col) lane index within a group (0 = the
-    ones lane, 1+i = variable ``vars[i]``, then one PRODUCT lane per
-    ``prod_src`` factor pair, built in-kernel by the selector relayout —
-    covers subsets of up to 4 distinct variables). ``width`` counts a
-    group's lanes; ``kernel_ok`` is False when some subset has > 4
-    distinct variables (the XLA sweep remains the fallback)."""
+      ``hi_cols[j]`` (per-column lane dots like the size-0 row)."""
 
 
 @functools.lru_cache(maxsize=128)
@@ -171,34 +143,7 @@ def _gram_layout(cliques: tuple) -> _GramLayout:
     sing_g = np.full(len(vars_), -1, np.int32)
     pair_g, pair_iu, pair_iv = [], [], []
     hi_g, hi_cols = [], []
-    nv = len(vars_)
-    prods = {}  # (iu, iv) var-index factor pair -> product lane index
-    lane_pairs = np.zeros((layout.m, 2), np.int32)
-    kernel_ok = True
-
-    def prod_lane(iu, iv):
-        key = (iu, iv)
-        if key not in prods:
-            prods[key] = 1 + nv + len(prods)
-        return prods[key]
-
     for g, S in enumerate(layout.subsets):
-        uniq = sorted({vi[v] for v in S})  # b^2 = b: repeats collapse
-        if len(uniq) == 0:
-            la, lb = 0, 0
-        elif len(uniq) == 1:
-            la, lb = 0, 1 + uniq[0]
-        elif len(uniq) == 2:
-            la, lb = 1 + uniq[0], 1 + uniq[1]
-        elif len(uniq) == 3:
-            la, lb = prod_lane(uniq[0], uniq[1]), 1 + uniq[2]
-        elif len(uniq) == 4:
-            la = prod_lane(uniq[0], uniq[1])
-            lb = prod_lane(uniq[2], uniq[3])
-        else:
-            kernel_ok = False
-            la = lb = -1
-        lane_pairs[g] = (la, lb)
         if len(S) == 1:
             sing_g[vi[S[0]]] = g
         elif len(S) == 2:
@@ -215,9 +160,6 @@ def _gram_layout(cliques: tuple) -> _GramLayout:
         pair_iu=np.asarray(pair_iu, np.int32),
         pair_iv=np.asarray(pair_iv, np.int32),
         hi_g=np.asarray(hi_g, np.int32), hi_cols=tuple(hi_cols),
-        width=1 + nv + len(prods),
-        prod_src=tuple(sorted(prods, key=prods.get)),
-        lane_pairs=lane_pairs, kernel_ok=kernel_ok,
     )
 
 
@@ -237,22 +179,21 @@ def _chunk_mono_partials(mrf: MRF, coef_mono, lnZ, blk, offset, cb: int):
 
     * ``lane_w`` (L,) — lane-resolved ``sum w`` (L = min(128, chunk));
     * ``G`` (nv, nv) — the weighted Gram ``B^T diag(w) B`` of the used
-      variables' bit planes: ONE HIGHEST-precision MXU matmul yields
+      variables' bit planes: ONE HIGHEST-precision matrix product yields
       every size-1 (diagonal, ``b^2 = b``) and size-2 monomial moment;
     * ``extra`` (n_hi, L) — lane dots of the rare size->=3 columns.
 
-    The log-potential rides the MXU too: ``lp = c0 + B a +
+    The log-potential is a matrix product too: ``lp = c0 + B a +
     rowsum((B Q) * B)`` with the singleton/pair coefficients scattered
-    into ``a``/``Q`` (higher subsets FMA their product columns in).
-    This keeps the sweep off the ~m-materialized-columns form, whose
-    HBM traffic (each column written + reread for its dot) measured 5x
-    slower on-chip; per chunk only B, BQ and w ever hit HBM.
+    into ``a``/``Q`` (higher subsets FMA their product columns in),
+    which keeps the sweep off the ~m-materialized-columns form (each
+    column written and reread for its dot).
 
     Scalar-output reductions fused into producers are AVOIDED on
     purpose: they lower to sequential accumulations whose f32 error
     grows ~N*eps (measured 3e-5 absolute at chunk 2^16 — enough to fail
     the 1e-4-rtol oracle pins). lane_w/extra keep (L,) accumulators; the
-    Gram's contraction is the MXU's tiled f32 accumulation. Final sums
+    Gram's contraction is a tiled f32 accumulation. Final sums
     run once on small materialized arrays. Chunk-constant bits
     (variables above the block cut) broadcast into their B columns."""
     gram = _gram_layout(mrf.cliques)
@@ -312,100 +253,6 @@ def _assemble_mono(partials, cliques: tuple):
     return mono
 
 
-def _gram_kernel_inputs(gram: _GramLayout, coef_mono, n: int,
-                        num_states: int):
-    """(Q, E, lsh, grow, hsh, S1, S2) for
-    :func:`qcmrf_tpu.ops.kernels.gram_moments_call`.
-
-    Lane layout per :func:`qcmrf_tpu.ops.kernels.gram_geometry`: P
-    state-groups of ``gram.width`` lanes (a ones lane, one lane per
-    variable, and one PRODUCT lane per ``gram.prod_src`` factor pair).
-    ``Q`` carries one block-diagonal copy of the coefficients per group
-    — every monomial's coefficient at its ``lane_pairs`` entry — so the
-    whole log-potential is a single contraction. ``E`` is the lane-group
-    projector (E[l, l'] = 1 iff both lanes belong to the same group)
-    through which the kernel recovers each LANE's own group's
-    log-potential. ``lsh``/``hsh`` are the per-lane in-block /
-    block-index bit shifts (30 parks a lane at 0) and ``grow`` the
-    lane-constant part (ones lanes + each group's group-index bits).
-    ``S1``/``S2`` are the one-hot selector matrices of the in-kernel
-    product-lane relayout ``B' = (B S1) * (B S2)`` — ``None`` when the
-    structure is pairwise (no product lanes)."""
-    import numpy as np
-
-    from qcmrf_tpu.ops import kernels
-
-    nv = len(gram.vars)
-    width = gram.width
-    logS, logP = kernels.gram_geometry(width, num_states)
-    lsh = np.full((1, kernels.LANE), 30, np.int32)
-    hsh = np.full((1, kernels.LANE), 30, np.int32)
-    grow = np.zeros((1, kernels.LANE), np.float32)
-    E = np.zeros((kernels.LANE, kernels.LANE), np.float32)
-    nprod = len(gram.prod_src)
-    S1 = np.zeros((kernels.LANE, kernels.LANE), np.float32)
-    S2 = np.zeros((kernels.LANE, kernels.LANE), np.float32)
-    for g in range(1 << logP):
-        base = g * width
-        grow[0, base] = 1.0  # this group's constant-1 lane
-        E[base:base + width, base:base + width] = 1.0
-        S1[base, base] = S2[base, base] = 1.0  # ones = ones * ones
-        for j, v in enumerate(gram.vars):
-            p = n - 1 - v
-            lane = base + 1 + j
-            S1[lane, lane] = S2[lane, lane] = 1.0  # b^2 = b
-            if p < logS:
-                lsh[0, lane] = p
-            elif p < logS + logP:
-                grow[0, lane] = float((g >> (p - logS)) & 1)
-            else:
-                hsh[0, lane] = p - logS - logP
-        for j, (iu, iv) in enumerate(gram.prod_src):
-            lane = base + 1 + nv + j  # built by the relayout; parked
-            S1[base + 1 + iu, lane] = 1.0  # pre-relayout (lsh/hsh = 30)
-            S2[base + 1 + iv, lane] = 1.0
-    lp = jnp.asarray(gram.lane_pairs)
-    Q = jnp.zeros((kernels.LANE, kernels.LANE), jnp.float32)
-    for g in range(1 << logP):
-        b = g * width
-        Q = Q.at[b + lp[:, 0], b + lp[:, 1]].add(coef_mono)
-    sel = ((jnp.asarray(S1), jnp.asarray(S2)) if nprod else (None, None))
-    return (Q, jnp.asarray(E), jnp.asarray(lsh), jnp.asarray(grow),
-            jnp.asarray(hsh)) + sel
-
-
-def _mono_from_G(G, gram: _GramLayout, m: int, num_states: int):
-    """(m,) monomial moments from the kernel's (128, 128) weighted Gram:
-    the P diagonal width x width sub-blocks (one per packed state-group)
-    SUM to the true Gram — cross-group entries are never read — and
-    every monomial is the Gram entry at its ``lane_pairs`` coordinates
-    ((0, 0) = ``sum w``, ones row = singletons, variable x variable =
-    pairs, product-lane entries = size-3/4 subsets; a LINEAR map, so
-    sharded callers may psum either side)."""
-    from qcmrf_tpu.ops import kernels
-
-    width = gram.width
-    _, logP = kernels.gram_geometry(width, num_states)
-    Gs = G[:width, :width]
-    for g in range(1, 1 << logP):
-        b = g * width
-        Gs = Gs + G[b:b + width, b:b + width]
-    lp = jnp.asarray(gram.lane_pairs)
-    return Gs[lp[:, 0], lp[:, 1]]
-
-
-def _use_gram_kernel(gram: _GramLayout, n: int, num_states: int) -> bool:
-    """Route through the Pallas weighted-Gram kernel when every monomial
-    factors into two group lanes (subsets of <= 4 distinct variables)
-    and the kernel's lane/width gates pass; the XLA sweep below remains
-    the general path."""
-    from qcmrf_tpu.ops import kernels
-
-    return (gram.kernel_ok
-            and n >= kernels._MIN_KERNEL_N
-            and kernels.gram_kernel_applies(gram.width, n, num_states))
-
-
 def _masks_from_monomials(mono, cliques: tuple):
     """theta-layout moments ``E_p[phi]`` from monomial moments
     ``E_p[prod b]`` by the inverse-Moebius doubling per clique: per slot
@@ -430,8 +277,8 @@ def _masks_from_monomials(mono, cliques: tuple):
 
 
 def _beta_coef(mrf: MRF) -> jax.Array:
-    """beta-scaled Moebius coefficients, same padded layout as the Pallas
-    kernels' (the transform is linear, so scaling commutes with it)."""
+    """beta-scaled Moebius coefficients, same padded layout as the
+    sweeps' (the transform is linear, so scaling commutes with it)."""
     from qcmrf_tpu.ops import kernels
 
     return (jnp.asarray(mrf.beta, jnp.float32)
@@ -461,18 +308,6 @@ def clique_moments_streaming(mrf: MRF, lnZ=None) -> jax.Array:
         lnZ = kernels.log_partition(mrf)
     layout = _monomial_layout(mrf.cliques)
     coef_mono = _coef_mono(_beta_coef(mrf), layout)
-    gram = _gram_layout(mrf.cliques)
-    if _use_gram_kernel(gram, mrf.n, 1 << mrf.n):
-        Q, E, lsh, grow, hsh, S1, S2 = _gram_kernel_inputs(
-            gram, coef_mono, mrf.n, 1 << mrf.n)
-        G = kernels.gram_moments_call(
-            gram.width, Q, E,
-            jnp.asarray(lnZ, jnp.float32).reshape(1),
-            1 << mrf.n, jnp.zeros((1,), jnp.int32), lsh, grow, hsh,
-            S1, S2)
-        return _masks_from_monomials(
-            _mono_from_G(G, gram, layout.m, 1 << mrf.n),
-            mrf.cliques)
     cb = min(_CHUNK_BITS if mrf.n <= 31 else _CHUNK_BITS_BIG, mrf.n)
     offset = jnp.arange(1 << cb, dtype=jnp.int32)
     # block 0's partials double as the scan init (pytree-shaped)
@@ -491,28 +326,13 @@ def clique_moments_streaming(mrf: MRF, lnZ=None) -> jax.Array:
 
 
 def lnz_and_moments_streaming(mrf: MRF):
-    """``(lnZ, E_p[phi])`` in ONE streaming sweep when the Gram kernel
-    covers the structure (pairwise; flash-style running-max accumulation,
-    :func:`qcmrf_tpu.ops.kernels._build_gram_lse_loop_kernel`) —
-    otherwise the two-sweep fallback (lnZ sweep, then the moment sweep
-    it normalizes). Halves the sweep count of an exact-MLE training
-    step, whose NLL needs lnZ forward and the moments as its gradient."""
+    """``(lnZ, E_p[phi])``: the lnZ sweep, then the moment sweep it
+    normalizes — what an exact-MLE training step needs (its NLL takes
+    lnZ forward and the moments as its gradient)."""
     from qcmrf_tpu.ops import kernels
 
-    layout = _monomial_layout(mrf.cliques)
-    gram = _gram_layout(mrf.cliques)
-    if not _use_gram_kernel(gram, mrf.n, 1 << mrf.n):
-        lnZ = kernels.log_partition(mrf)
-        return lnZ, clique_moments_streaming(mrf, lnZ)
-    coef_mono = _coef_mono(_beta_coef(mrf), layout)
-    Q, E, lsh, grow, hsh, S1, S2 = _gram_kernel_inputs(
-        gram, coef_mono, mrf.n, 1 << mrf.n)
-    G, M = kernels.gram_lse_moments_call(
-        gram.width, Q, E, 1 << mrf.n, jnp.zeros((1,), jnp.int32),
-        lsh, grow, hsh, S1, S2)
-    mono = _mono_from_G(G, gram, layout.m, 1 << mrf.n)
-    Z = mono[0]  # sum over groups of the ones*ones entry = Z * exp(-M)
-    return M + jnp.log(Z), _masks_from_monomials(mono / Z, mrf.cliques)
+    lnZ = kernels.log_partition(mrf)
+    return lnZ, clique_moments_streaming(mrf, lnZ)
 
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(0, 1, 2))
@@ -605,7 +425,7 @@ def reduce_evidence(mrf: MRF, evidence: dict):
     multi-chip counterpart of elimination's clamped pass
     (models/elimination.py::_build_lnZ_clamped) with no treewidth bound:
     the reduced model runs through any lnZ backend, including the
-    streaming kernels and the sharded sweeps."""
+    streaming sweeps and the sharded sweeps."""
     from qcmrf_tpu.models import elimination as _ve
 
     _ve._validate_evidence(mrf.n, evidence)

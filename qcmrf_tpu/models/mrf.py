@@ -1,6 +1,6 @@
 """Markov random field model core (pure JAX, no circuits).
 
-This module is the TPU-native replacement for the reference's external
+This module is the JAX replacement for the reference's external
 ``kiopto_native`` exact-inference engine (reference call sites:
 /root/reference/eval.py:84-93, /root/reference/run_experiment.py:26-27) and
 for the model bookkeeping in ``QCMRF.__init__`` (/root/reference/QCMRF.py:36-80).
@@ -20,7 +20,7 @@ State ids use variable 0 as the **MSB** (SURVEY.md Appendix A item 3).
 
 All heavy ops are vectorized gathers over padded clique index arrays so they
 trace to a handful of XLA ops regardless of the number of cliques — no Python
-loop over states, MXU/VPU-friendly, and shardable over the state axis (see
+loop over states, and shardable over the state axis (see
 ``qcmrf_tpu.parallel``).
 """
 

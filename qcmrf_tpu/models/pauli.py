@@ -1,6 +1,6 @@
 """Lightweight Pauli algebra for diagonal (I/Z) operators.
 
-TPU-native replacement for the reference's use of ``qiskit.opflow``
+JAX replacement for the reference's use of ``qiskit.opflow``
 (/root/reference/QCMRF.py:6, :159-197). The QCMRF sufficient statistics and
 Hamiltonian are built purely from tensor products of ``I``, ``(I+Z)/2`` and
 ``(I-Z)/2`` — all *diagonal* in the computational basis — so instead of a

@@ -1,6 +1,6 @@
 """Classical samplers over MRFs (exact / Gibbs chain / perturb-and-MAP).
 
-TPU-native replacement for ``kiopto_native``'s sampling API
+JAX replacement for ``kiopto_native``'s sampling API
 (``px.sample(b)`` and ``px.sample(b, pam=True)``, reference
 /root/reference/eval.py:95-113). All samplers are jit-compiled, use
 ``jax.random`` keys, and express the Markov chain with ``lax.scan`` —

@@ -83,7 +83,7 @@ def make_train_step(
     optimizer: optax.GradientTransformation,
     nonpositive: bool = True,
 ) -> Callable:
-    """Jitted single-chip training step: (state, batch) -> (state, loss)."""
+    """Jitted single-device training step: (state, batch) -> (state, loss)."""
 
     @jax.jit
     def step(raw, opt_state, batch):

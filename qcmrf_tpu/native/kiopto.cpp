@@ -8,7 +8,7 @@
 // Unlike the 2^n enumeration the evaluation path needs, lnZ and MAP here
 // run **bucket (variable) elimination** in the log domain, so the host-side
 // oracle scales with treewidth rather than variable count — it cross-checks
-// the TPU exact-inference kernels far beyond enumeration range on chains /
+// the device exact-inference sweeps far beyond enumeration range on chains /
 // grids.
 //
 // Conventions match the verified reference layout (SURVEY.md Appendix A):

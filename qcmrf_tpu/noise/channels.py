@@ -2,7 +2,7 @@
 
 Replaces the reference's IBM-hardware execution + readout-error machinery
 (run_experiment.py:65-78; stored quasi-dists in res_*/result_{torino,
-sherbrooke,ehningen}.json) with TPU-native emulation (SURVEY.md §2.3 N6).
+sherbrooke,ehningen}.json) with JAX emulation (SURVEY.md §2.3 N6).
 
 Because every QCMRF observable is a *measurement distribution*, noise can be
 applied directly to the joint outcome distribution:

@@ -14,9 +14,8 @@ Engine notes
 * Exact density-matrix evolution over the lowered basis ``[cx,id,rz,sx,x]``
   (circuits/lower.py). Suite widths are <= 10 qubits, so rho is at most
   1024x1024 complex64 (8 MB) — cheap on the host CPU. This is a noise/
-  validation path, deliberately NOT the TPU hot path (complex dtypes are
-  unsupported on the TPU backend anyway; the ideal engines in sim/ and
-  ops/ carry the performance story).
+  validation path, deliberately NOT the accelerator hot path (the ideal
+  engines in sim/ and ops/ carry the performance story).
 * numpy, not jax: the gate loop is hundreds of small reshaped updates
   whose cost is memory traffic; rz (diagonal phase) and x/cx (index
   permutations) never materialize a matrix.

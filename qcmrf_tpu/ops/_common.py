@@ -1,4 +1,4 @@
-"""Shared bits for the Pallas kernel modules (one definition, not three)."""
+"""Shared bits for Pallas kernels."""
 
 from __future__ import annotations
 
@@ -6,5 +6,6 @@ import jax
 
 
 def interpret() -> bool:
-    """Run kernels in interpret mode off-TPU (the CPU unit suite)."""
-    return jax.default_backend() != "tpu"
+    """Run Pallas kernels in interpret mode: on the CPU only (the tests).
+    On a GPU a kernel is always compiled for the card."""
+    return jax.default_backend() == "cpu"

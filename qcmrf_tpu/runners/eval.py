@@ -22,7 +22,7 @@ from qcmrf_tpu.models.suite import generate_suite, load_suite
 
 def main(argv: Optional[List[str]] = None) -> str:
     parser = argparse.ArgumentParser(
-        prog="QCMRF result evaluation (TPU-native).",
+        prog="QCMRF result evaluation.",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
     )
     parser.add_argument("--results", type=str,
@@ -45,7 +45,7 @@ def main(argv: Optional[List[str]] = None) -> str:
                              "pass the actual shot count for files produced "
                              "with --shots != 10000).")
     parser.add_argument("--platform", type=str, default="cpu",
-                        choices=["cpu", "tpu", "default"],
+                        choices=["cpu", "gpu", "default"],
                         help="Device for the evaluation math. The suite's "
                              "models are <= 32 states, so CPU avoids "
                              "per-graph accelerator compiles and is much "
@@ -58,8 +58,6 @@ def main(argv: Optional[List[str]] = None) -> str:
 
     args = parse_with_config(parser, argv)
 
-    # hang-proof platform selection (utils/device.py): 'tpu'/'default'
-    # probe the accelerator with a bounded out-of-process check
     from qcmrf_tpu.utils.device import resolve_platform
     resolve_platform(args.platform, prog="qcmrf_tpu eval")
 

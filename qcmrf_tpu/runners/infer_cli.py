@@ -171,12 +171,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
                              "capability.py) — instead of answering; "
                              "host-side only, never touches a device")
     parser.add_argument("--platform", type=str, default="default",
-                        choices=["cpu", "tpu", "default"],
+                        choices=["cpu", "gpu", "default"],
                         help="'default' routes small models (n <= 26, no "
                              "--mesh) to cpu — the serving math beats the "
                              "per-query accelerator compile there — and "
-                             "probes the accelerator (hang-proof, bounded) "
-                             "for the rest; 'tpu' is the explicit opt-in")
+                             "takes the default backend for the rest; "
+                             "'gpu' requires a GPU")
     from qcmrf_tpu.utils.config import parse_with_config
     args = parse_with_config(parser, argv)
 
@@ -258,7 +258,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
                 f.write(line + "\n")
         return report
 
-    # ---- platform (hang-proof: qcmrf_tpu.utils.device) ------------------
+    # ---- platform (qcmrf_tpu.utils.device) -----------------------------
     from qcmrf_tpu.utils.device import resolve_platform
     resolve_platform(
         args.platform,

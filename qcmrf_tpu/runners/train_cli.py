@@ -3,8 +3,8 @@
 ``python -m qcmrf_tpu train --graph chain:8 --samples 20000 --steps 500``
 
 Generates (or loads) data, fits theta by gradient descent on the exact
-NLL, periodically checkpoints the optimizer state with **orbax**
-(``<outdir>/ckpt/<step>``, resumable across processes and jax versions),
+NLL, periodically checkpoints the parameters and optimizer state as
+numpy arrays (``<outdir>/ckpt/<step>/state.npz``, the two newest kept),
 and writes the fitted model as JSON ``{"cliques": ..., "theta": ...}``.
 Resume with ``--resume`` picks up from the newest checkpoint (SURVEY.md
 §5: the reference's only checkpointing is its JSON artifacts; training
@@ -40,6 +40,43 @@ def parse_graph(spec: str):
         return [list(C) for C in grid_mrf(int(r), int(c)).cliques]
     with open(spec) as f:
         return json.load(f)
+
+
+def _ckpt_steps(root: str) -> List[int]:
+    """Steps with a complete checkpoint under ``root``, ascending."""
+    if not os.path.isdir(root):
+        return []
+    return sorted(int(d) for d in os.listdir(root) if d.isdigit()
+                  and os.path.isfile(os.path.join(root, d, "state.npz")))
+
+
+def _save_ckpt(root: str, step: int, tree, keep: int = 2) -> None:
+    """Write ``tree``'s leaves as ``<root>/<step>/state.npz`` (renamed into
+    place, so a crash never leaves a partial step) and keep the newest
+    ``keep`` steps."""
+    import shutil
+
+    import jax
+
+    d = os.path.join(root, str(step))
+    tmp = d + ".partial"
+    os.makedirs(tmp, exist_ok=True)
+    np.savez(os.path.join(tmp, "state.npz"),
+             *[np.asarray(x) for x in jax.tree.leaves(tree)])
+    shutil.rmtree(d, ignore_errors=True)
+    os.replace(tmp, d)
+    for old in _ckpt_steps(root)[:-keep]:
+        shutil.rmtree(os.path.join(root, str(old)))
+
+
+def _restore_ckpt(root: str, step: int, like):
+    """The pytree saved at ``step``, in the structure of ``like``."""
+    import jax
+    import jax.numpy as jnp
+
+    with np.load(os.path.join(root, str(step), "state.npz")) as f:
+        leaves = [jnp.asarray(f[f"arr_{i}"]) for i in range(len(f.files))]
+    return jax.tree.unflatten(jax.tree.structure(like), leaves)
 
 
 def _make_mesh(spec: str):
@@ -98,11 +135,10 @@ def main(argv: Optional[List[str]] = None) -> str:
                              "(amp=A, data=B) device mesh; with --grad "
                              "shots, shots shard over all A*B devices")
     parser.add_argument("--platform", type=str, default="default",
-                        choices=["cpu", "tpu", "default"],
+                        choices=["cpu", "gpu", "default"],
                         help="'default' routes small fits (n <= 20, no "
-                             "--mesh) to cpu and probes the accelerator "
-                             "(hang-proof, bounded) for the rest; 'tpu' "
-                             "is the explicit opt-in")
+                             "--mesh) to cpu and takes the default "
+                             "backend for the rest; 'gpu' requires a GPU")
     parser.add_argument("--learn-structure", action="store_true",
                         help="select the clique structure itself by "
                              "group-lasso MLE over --candidates before "
@@ -136,7 +172,6 @@ def main(argv: Optional[List[str]] = None) -> str:
     import jax
     import jax.numpy as jnp
     import optax
-    import orbax.checkpoint as ocp
 
     from qcmrf_tpu.models import sample as msample
     from qcmrf_tpu.models import train as mtrain
@@ -289,35 +324,11 @@ def main(argv: Optional[List[str]] = None) -> str:
     opt_state = opt.init(raw)
     start = 0
 
-    # orbax checkpoint manager: numbered steps under <outdir>/ckpt.
-    # Synchronous saves: async checkpointing spawns worker threads whose
-    # interpreter-shutdown teardown intermittently aborts the process
-    # (observed as "Fatal Python error" after green test runs), and these
-    # states are tiny.
-    mngr = ocp.CheckpointManager(
-        os.path.abspath(os.path.join(args.outdir, "ckpt")),
-        options=ocp.CheckpointManagerOptions(
-            max_to_keep=2, enable_async_checkpointing=False
-        ),
-    )
-    legacy = os.path.join(args.outdir, "checkpoint.npz")
-    if args.resume and mngr.latest_step() is None and os.path.isfile(legacy):
-        raise SystemExit(
-            f"{legacy} is a legacy pickle checkpoint from a previous "
-            "version; it cannot be resumed by the orbax format. Delete it "
-            "(restarting from scratch) or re-run the old version to "
-            "completion."
-        )
-    if args.resume and mngr.latest_step() is not None:
-        start = int(mngr.latest_step())
-        restored = mngr.restore(
-            start,
-            args=ocp.args.StandardRestore(
-                {"raw": raw, "opt_state": opt_state}
-            ),
-        )
-        raw = restored["raw"]
-        opt_state = restored["opt_state"]
+    ckpt = os.path.abspath(os.path.join(args.outdir, "ckpt"))
+    steps = _ckpt_steps(ckpt)
+    if args.resume and steps:
+        start = steps[-1]
+        raw, opt_state = _restore_ckpt(ckpt, start, (raw, opt_state))
         print(f"resumed from step {start}")
 
     mesh = None
@@ -441,18 +452,10 @@ def main(argv: Optional[List[str]] = None) -> str:
     for s in range(start, args.steps):
         raw, opt_state, loss = step_fn(raw, opt_state, data)
         if (s + 1) % args.checkpoint_every == 0 or s + 1 == args.steps:
-            mngr.save(
-                s + 1,
-                args=ocp.args.StandardSave(
-                    {"raw": raw, "opt_state": opt_state}
-                ),
-            )
-            mngr.wait_until_finished()
+            _save_ckpt(ckpt, s + 1, (raw, opt_state))
             print(f"step {s + 1}: {loss_label}={float(loss):.4f} "
                   "(checkpointed)")
 
-    mngr.close()  # join orbax's async workers (a live thread pool at
-    # interpreter exit can abort shutdown with a fatal error)
     theta = mtrain._to_theta(raw, True)
     out_path = os.path.join(args.outdir, "fitted_model.json")
     out_doc = {"cliques": cliques,

@@ -1,4 +1,4 @@
-"""Closed-form QCMRF outcome distribution — the TPU fast path.
+"""Closed-form QCMRF outcome distribution — the fast path.
 
 The QCMRF circuit's measurement statistics factorize exactly (derived from
 the verified semantics in SURVEY.md Appendix A item 5): every per-clique
@@ -13,13 +13,13 @@ with ``c2_k(x) = exp(beta * theta_{k, y_k(x)})``. Consequences:
 
 * the *unconditional* marginal of ``x`` is uniform — sampling the circuit
   reduces to "draw x uniformly, then flip K independent Bernoulli ancillas" —
-  embarrassingly parallel over shots, ideal for TPU;
+  embarrassingly parallel over shots;
 * post-selection on all-zero ancillas yields the Gibbs distribution with
   success rate ``delta = Z / 2**n``.
 
 This module is the flagship execution path for QCMRF circuits; the gate-level
-engines (:mod:`qcmrf_tpu.sim.dense`, :mod:`qcmrf_tpu.ops.kernels`) validate
-it gate-by-gate and serve arbitrary circuits.
+engines (:mod:`qcmrf_tpu.sim.dense`, :mod:`qcmrf_tpu.sim.tpu`) validate it
+gate-by-gate and serve arbitrary circuits.
 """
 
 from __future__ import annotations
@@ -118,7 +118,7 @@ def clique_keep_probs_fast(mrf: MRF, x) -> jax.Array:
     to multilinear (Moebius) coefficients in-graph (tiny (K, 2^cmax) ops),
     then evaluated per state as an FMA chain over bit monomials — no
     per-(state, clique) gather, so XLA fuses the whole thing. Exact; the
-    TPU throughput path for sampling (the gather version is the reference).
+    throughput path for sampling (the gather version is the reference).
     """
     idx_map, _, cmax = _moebius_layout(mrf.cliques, mrf.n)
     tab = moebius.transform(
@@ -128,8 +128,8 @@ def clique_keep_probs_fast(mrf: MRF, x) -> jax.Array:
 
 
 def log_potentials_fast(mrf: MRF, x) -> jax.Array:
-    """Gather-free ``beta * theta^T phi(x)``: the XLA twin of the Pallas
-    log-potential kernel — per-clique Moebius coefficients evaluated as FMA
+    """Gather-free ``beta * theta^T phi(x)``: per-clique Moebius
+    coefficients evaluated as FMA
     chains over bit monomials and summed over cliques. Exact; preferable to
     ``mrf.log_potential`` for large state batches on accelerators (no
     per-(state, clique) gather)."""
@@ -159,38 +159,31 @@ def joint_outcome_probs(mrf: MRF) -> jax.Array:
 
     Key layout (matches the deferred-measurement dense engine and qiskit
     key ints): bits ``0..n-1`` = variable state id, bit ``n`` = workspace
-    (always 0), bits ``n+1+k`` = ancilla of clique ``k``. Only sensible for
-    small suites (n + K + 1 <= ~24); large models use
-    :func:`sample_outcomes` which never materializes the joint.
+    (always 0), bits ``n+1+k`` = ancilla of clique ``k``. Peak memory is
+    about twice the output; large models use :func:`sample_outcome_parts`,
+    which never materializes the joint.
     """
     check_theta_domain(mrf)
     n, K = mrf.n, mrf.num_cliques
-    # bound the true peak allocation: both the (2**K, 2**n, K) broadcast
-    # intermediate below and the 2**(n+K+1) output/keys arrays
-    if max(K * (1 << (n + K)), 1 << (n + K + 1)) > (1 << 28):
+    if n + K + 1 > 31:
         raise ValueError(
-            f"joint distribution would need ~max({K} * 2**{n + K}, "
-            f"2**{n + K + 1}) floats; use sample_outcome_parts / "
+            f"joint distribution would need 2**{n + K + 1} floats and "
+            "int32 keys past 2**31; use sample_outcome_parts / "
             "sample_postselected for large models (they never materialize "
             "the joint)"
         )
     x = jnp.arange(mrf.num_states, dtype=jnp.int32)
     c2 = clique_keep_probs(mrf, x)  # (2**n, K)
-    s2 = 1.0 - c2
 
     # ancilla configurations a in [0, 2**K): bit k of a = outcome of clique k
-    a = jnp.arange(1 << K, dtype=jnp.int32)
-    abits = ((a[:, None] >> jnp.arange(K)) & 1).astype(c2.dtype)  # (2**K, K)
-    # P[a, x] = 2^-n * prod_k (abits ? s2 : c2)
-    logs = jnp.log(
-        jnp.where(abits[:, None, :] == 1, s2[None, :, :], c2[None, :, :])
-    )
-    P = jnp.exp(logs.sum(-1)) * (2.0 ** -n)  # (2**K, 2**n)
-
-    out = jnp.zeros((1 << (n + K + 1),), dtype=c2.dtype)
-    # key = x + (a << (n+1)); workspace bit n is 0
-    keys = (a[:, None] << (n + 1)) + x[None, :]
-    return out.at[keys.reshape(-1)].add(P.reshape(-1))
+    # P[a, x] = 2^-n * prod_k (1 - c2 if bit k of a else c2)
+    a = jnp.arange(1 << K, dtype=jnp.int32)[:, None]
+    P = jnp.full((1 << K, mrf.num_states), 2.0 ** -n, c2.dtype)
+    for k in range(K):
+        P = P * jnp.where(((a >> k) & 1) == 1, 1.0 - c2[:, k], c2[:, k])
+    # key = x + (a << (n+1)); the workspace bit n is 0
+    out = jnp.zeros((1 << K, 2, mrf.num_states), c2.dtype)
+    return out.at[:, 0].set(P).reshape(-1)
 
 
 def sample_outcome_parts(key: jax.Array, mrf: MRF, shots: int):

@@ -1,12 +1,12 @@
-"""Dense single-chip statevector engine over the circuit IR.
+"""Dense single-device statevector engine over the circuit IR.
 
-TPU-native replacement for Qiskit Aer's ``qasm_simulator``
+Replacement for Qiskit Aer's ``qasm_simulator``
 (/root/reference/run_experiment.py:54-56). The engine evolves a complex
 statevector with **qubit 0 as the least-significant bit** of the state index,
 which makes the final ``|psi|^2`` directly indexable by the reference's
 measurement keys (``int(key, 2)``; see qcmrf_tpu.utils.bits).
 
-Design notes (TPU-first):
+Design notes:
 
 * every gate application is a static-shape reshape + contraction — no
   data-dependent control flow, fully jit-able; XLA fuses the elementwise
@@ -21,8 +21,8 @@ Design notes (TPU-first):
   (SURVEY.md §2.3 N3) — the lowered basis-gate circuit exercises the literal
   sequence instead.
 
-The hot-loop Pallas kernels live in :mod:`qcmrf_tpu.ops.kernels`; this module
-is the reference implementation they are tested against.
+The fused plane engine (:mod:`qcmrf_tpu.sim.tpu`) is tested against this
+module, its reference implementation.
 """
 
 from __future__ import annotations
@@ -87,7 +87,10 @@ def _bit(idx: jax.Array, q: int) -> jax.Array:
 
 @functools.lru_cache(maxsize=64)
 def _state_indices(num_qubits: int):
-    return jnp.arange(1 << num_qubits, dtype=jnp.int32)
+    # evaluated eagerly even when first reached inside a jit/vmap trace,
+    # so the cache never holds a tracer
+    with jax.ensure_compile_time_eval():
+        return jnp.arange(1 << num_qubits, dtype=jnp.int32)
 
 
 def apply_diagonal_phase(state, mask_bool, angle) -> jax.Array:

@@ -26,7 +26,7 @@ def sample_from_probs(key: jax.Array, probs: jax.Array, shots: int) -> jax.Array
     search. ``jax.random.categorical`` would materialize a
     ``(shots, num_states)`` Gumbel table — 4e8 threefry draws for 400k
     shots over 1024 outcomes (~5 min on one CPU core, measured; this
-    formulation takes milliseconds and is cheaper on TPU too). Zero-
+    formulation takes milliseconds, on an accelerator too). Zero-
     probability outcomes are never selected: their inclusive-cdf entry
     equals their predecessor's, so no ``u`` lands strictly inside.
     """

@@ -1,18 +1,20 @@
-"""TPU gate-level statevector engine on real/imag float32 planes.
+"""Gate-level statevector engine on real/imag float32 planes.
 
-The on-device counterpart of :mod:`qcmrf_tpu.sim.dense` (which uses complex
-dtypes the TPU backend does not support): amplitudes live as two
-``(2**Q / 128, 128)`` float32 planes and every gate is a Pallas kernel from
-:mod:`qcmrf_tpu.ops.kernels` —
+The fused counterpart of :mod:`qcmrf_tpu.sim.dense`: amplitudes live as
+two ``(2**Q / 128, 128)`` float32 planes, the circuit is lowered and
+fused on the host into few passes (:func:`fuse_ops`), and every pass is
+an elementwise plane op from :mod:`qcmrf_tpu.ops.kernels` —
 
-* non-diagonal 1q gates: lane-qubit MXU matmul / row-qubit strided pairs
-  (``apply_1q``);
-* all diagonal gates (rz, cp, flags_phase): one masked-rotation pass;
+* non-diagonal 1q gates and adjacent pairs of them: one strided pass
+  (``apply_1q`` / ``apply_2q_row_pair``); a run of them on five or more
+  of the low qubits 0-6: one 128x128 dot (``apply_lane``);
+* runs of diagonal gates (rz, cp, flags_phase): one phase-profile pass;
+* H·D·H ancilla sandwiches: one pass per group of adjacent ancillas;
 * cx: X-basis decomposition ``cx = H_t . cp(pi) . H_t`` (keeps the gate
-  set closed over the implemented kernels).
+  set closed over the implemented passes).
 
-Requires ``Q >= 7`` (one lane row); smaller circuits fall back to the
-dense engine. Measurements are deferred exactly as in the dense engine.
+Requires ``Q >= 7`` (one lane row); smaller circuits use the dense
+engine. Measurements are deferred exactly as in the dense engine.
 """
 
 from __future__ import annotations
@@ -71,20 +73,26 @@ def apply_gate(re, im, g: Gate, num_qubits: int):
     raise ValueError(f"unsupported gate {g.name}")
 
 
-_MAX_DIAG_TERMS = 64  # cap per fused pass: bounds the unrolled kernel size
+_MAX_DIAG_TERMS = 64  # cap per fused pass: bounds the unrolled pass size
+
+#: a run of 1q ops on the low qubits 0-6 that touches at least this many
+#: of them becomes one 128x128 dot (kernels.apply_lane). Measured on one
+#: H100: strided passes win up to 4 qubits (8.2 against 9.0 ms at
+#: w=28), the dot wins at 7 (9.0 against 19.2 ms; PERF.md)
+_LANE_DOT_MIN_QUBITS = 5
 
 
 def _try_sandwich(h1, dg, h2):
-    """Recognize [rowq H on a] [diag] [rowq H on a] and rewrite it as one
+    """Recognize [1q H on a] [diag] [1q H on a] and rewrite it as one
     ('sandwich', a, nu_terms, nu_angles, nu_base, mu_terms, mu_angles,
     mu_base) op — see kernels.apply_hdh_sandwich for the algebra. Returns
-    None when the triple does not match (non-H matrices, lane-qubit
-    ancilla a < 7, or a term conditioning on a twice)."""
-    if h1[0] != "rowq" or h2[0] != "rowq" or dg[0] != "diag":
+    None when the triple does not match (non-H matrices, or a term
+    conditioning on a twice)."""
+    if h1[0] != "1q" or h2[0] != "1q" or dg[0] != "diag":
         return None
     _, U1, q1 = h1
     _, U2, q2 = h2
-    if q1 != q2 or q1 < 7:
+    if q1 != q2:
         return None
     H = np.asarray(GATES_1Q["h"], np.complex64)
     if not (np.allclose(U1, H, atol=1e-6)
@@ -173,20 +181,16 @@ def fuse_primitives(prim: list) -> list:
       the cp inside the cx decomposition) -> ONE ``('diag', terms, angles,
       base)`` pass (kernels.apply_diagonal_profile) — this collapses a
       clique's whole cU_C block sequence into a single sweep;
-    * consecutive non-diagonal 1q gates on LANE qubits (q < 7) compose
-      into one 128x128 matrix -> ONE MXU pass (e.g. the 7 lane-qubit H's
-      of the superposition wall);
-    * consecutive 1q gates on the SAME row qubit compose their 2x2s, and
-      consecutive 1q gates on ADJACENT row qubits merge into one 4x4
-      two-qubit pass (halves the superposition wall's row traffic);
+    * consecutive 1q gates on the SAME qubit compose their 2x2s, a run
+      of them on five or more of the low qubits 0-6 composes into one
+      128x128 dot, and consecutive 1q gates on ADJACENT qubits merge
+      into one 4x4 two-qubit pass;
     * H(a)·[diag]·H(a) triples collapse into ONE sandwich pass.
 
     Angles are handled generically (only +, unary -, /, and abs are used),
-    so the ICI-sharded engine can pass symbolic angles whose device-bit
+    so the sharded engine can pass symbolic angles whose device-bit
     conditions evaluate per-device at trace time (parallel.sharded).
     """
-    from qcmrf_tpu.ops.kernels import _lane_gate_matrix
-
     ops = []
     for p in prim:
         if p[0] == "diag":
@@ -200,17 +204,10 @@ def fuse_primitives(prim: list) -> list:
                 ops.append(("diag", (conds,), (a,), base))
         else:
             _, U, q = p
-            if q < 7:
-                M = _lane_gate_matrix(U, q)
-                if ops and ops[-1][0] == "lane":
-                    ops[-1] = ("lane", M @ ops[-1][1])
-                else:
-                    ops.append(("lane", M))
+            if ops and ops[-1][0] == "1q" and ops[-1][2] == q:
+                ops[-1] = ("1q", U @ ops[-1][1], q)
             else:
-                if ops and ops[-1][0] == "rowq" and ops[-1][2] == q:
-                    ops[-1] = ("rowq", U @ ops[-1][1], q)
-                else:
-                    ops.append(("rowq", U, q))
+                ops.append(("1q", U, q))
 
     # post-pass 1: collapse H(a)·[diag]·H(a) triples on a row qubit into
     # ONE sandwich pass (kernels.apply_hdh_sandwich) — each clique's whole
@@ -229,14 +226,11 @@ def fuse_primitives(prim: list) -> list:
     ops = fused
 
     # post-pass 1b: group runs of consecutive-ancilla sandwiches into ONE
-    # multi pass (kernels.apply_hdh_sandwich_multi), up to
-    # kernels._MAX_SANDWICH_K ancillas per pass. QCMRF emits one sandwich
+    # multi op (kernels.apply_hdh_sandwich_multi), up to
+    # kernels._MAX_SANDWICH_K ancillas per op. QCMRF emits one sandwich
     # per clique on consecutive ancilla qubits and no clique's profile
     # mentions another clique's ancilla, so neighbours commute and
-    # compose as a position-dependent Rx tensor power — every full pass
-    # is HBM-bound on-chip (the multi kernel's compute is linear in k and
-    # a same-geometry pure copy costs the same), so the group size is the
-    # whole cost model: a 13-clique n=28 chain drops to 2 sandwich passes.
+    # compose as a position-dependent Rx tensor power.
     grouped = []   # each group: [list of sandwich ops sorted by ancilla]
     out1b = []
     for op in ops:
@@ -268,19 +262,37 @@ def fuse_primitives(prim: list) -> list:
                     tuple(s[4] for s in item),
                     mt, ma, mb))
 
-    # post-pass 2: merge 1q ops on ADJACENT row qubits into one 4x4 pass
-    # (matrix index = bit(q_lo+1)*2 + bit(q_lo) -> kron(U_hi, U_lo)); the
-    # row-pair kernel's 2-D grid keeps VMEM blocks bounded at any stride
+    # post-pass 1c: a run of low-qubit 1q ops touching enough qubits
+    # composes into one 128x128 dot
+    lane = []
+    i = 0
+    while i < len(ops):
+        j = i
+        while j < len(ops) and ops[j][0] == "1q" and ops[j][2] < 7:
+            j += 1
+        run = ops[i:j] or [ops[i]]
+        if len({op[2] for op in ops[i:j]}) >= _LANE_DOT_MIN_QUBITS:
+            M = np.eye(128, dtype=np.complex64)
+            for _, U, q in run:
+                M = K.lane_gate_matrix(U, q) @ M
+            lane.append(("lane", M))
+        else:
+            lane.extend(run)
+        i += len(run)
+    ops = lane
+
+    # post-pass 2: merge 1q ops on ADJACENT qubits into one 4x4 pass
+    # (matrix index = bit(q_lo+1)*2 + bit(q_lo) -> kron(U_hi, U_lo))
     merged = []
     for op in ops:
-        if (op[0] == "rowq" and merged and merged[-1][0] == "rowq"
+        if (op[0] == "1q" and merged and merged[-1][0] == "1q"
                 and abs(merged[-1][2] - op[2]) == 1):
             _, U_prev, q_prev = merged[-1]
             _, U, q = op
             if q > q_prev:
-                merged[-1] = ("row2", np.kron(U, U_prev), q_prev)
+                merged[-1] = ("2q", np.kron(U, U_prev), q_prev)
             else:
-                merged[-1] = ("row2", np.kron(U_prev, U), q)
+                merged[-1] = ("2q", np.kron(U_prev, U), q)
         else:
             merged.append(op)
     return merged
@@ -306,7 +318,7 @@ def fold_uniform_prefix(prim: list):
     the state after the prefix is the uniform real superposition over the
     folded qubits tensored with |0> elsewhere — a masked CONSTANT that one
     write-only pass produces, instead of one HBM read+write pass per
-    fused wall op (lane matmul + row passes). A qubit is folded only if
+    fused wall op. A qubit is folded only if
     it has NO LATER 1q primitive: ancilla H's must stay in the stream so
     the H·D·H sandwich fusion still sees its triples.
 
@@ -340,10 +352,10 @@ def sandwich_fold_parts(first_op, folded_locals):
     avoid ``folded_locals``, return its ``(a, nts, nas, nbs, mt, ma,
     mb)`` normalized to the multi (k-tuple) layout so a write-only
     uniform-init fold can absorb it; else None. Shared by the
-    single-chip ``sandwichku`` fusion below and the sharded engine's
+    single-device ``sandwichku`` fusion below and the sharded engine's
     mirror of it (parallel.sharded._plan_fused) so the fold condition
     cannot drift between the two dialects."""
-    if first_op[0] in ("sandwichk", "sandwich4"):
+    if first_op[0] == "sandwichk":
         _, a, nts, nas, nbs, mt, ma, mb = first_op
         if any(a <= q < a + len(nts) for q in folded_locals):
             return None
@@ -359,7 +371,7 @@ def sandwich_fold_parts(first_op, folded_locals):
 def fuse_ops(circuit: Circuit) -> list:
     """Fused op stream of a circuit: :func:`circuit_primitives` (X-deferred
     lowering) composed with :func:`fuse_primitives` (peephole fusion into
-    diag/lane/rowq/row2/sandwich passes). The H-wall prefix folds into a
+    diag/1q/2q/lane/sandwich passes). The H-wall prefix folds into a
     closed-form ``('init_uniform', qubits)`` first op (write-only; see
     :func:`fold_uniform_prefix`)."""
     prim = circuit_primitives(circuit)
@@ -367,16 +379,61 @@ def fuse_ops(circuit: Circuit) -> list:
     if not folded:
         return fuse_primitives(prim)
     ops = fuse_primitives(rest)
-    # post-pass: fold the write-only uniform init INTO the first multi
-    # sandwich (kernels.apply_hdh_sandwich_multi_uniform) — the uniform
-    # state's ancilla bits are 0, so the pass's output on it has a
-    # closed form and one write-only pass replaces a write pass plus a
-    # read+write pass (ancillas are never folded, see fold_uniform_prefix)
-    if ops:
-        parts = sandwich_fold_parts(ops[0], folded)
-        if parts is not None:
-            return [("sandwichku", folded) + parts] + ops[1:]
+    fold = fold_sandwich_groups(ops, folded)
+    if fold is not None:
+        parts, rest = fold
+        return [("sandwichku", folded) + parts] + rest
     return [("init_uniform", folded)] + ops
+
+
+def fold_sandwich_groups(ops: list, folded):
+    """Fold the write-only uniform init INTO the leading sandwich groups
+    of ``ops`` (kernels.apply_hdh_sandwich_multi_uniform): the uniform
+    state's ancilla bits are 0 (ancillas are never folded, see
+    fold_uniform_prefix), so the groups' output on it has a closed form,
+    and one write-only pass replaces a write pass plus a read+write pass
+    per group. The closed form costs one multiply per ancilla and
+    output, so every adjacent group joins it (they commute and start
+    from ancillas at 0 too). Returns ``(parts, rest)`` — the joined
+    group in :func:`sandwich_fold_parts` layout and the ops left — or
+    None when ``ops`` does not start with a foldable group. Shared by
+    this engine and the sharded one (parallel.sharded._plan_fused)."""
+    if not ops:
+        return None
+    parts = sandwich_fold_parts(ops[0], folded)
+    if parts is None:
+        return None
+    rest = ops[1:]
+    while rest:
+        more = _join_fold_parts(parts, rest[0], folded)
+        if more is None:
+            break
+        parts, rest = more, rest[1:]
+    return parts, rest
+
+
+def _join_fold_parts(parts, op, folded):
+    """``parts`` (a :func:`sandwich_fold_parts` tuple) extended by the
+    sandwich group ``op`` when its ancillas sit next to the group's and
+    no profile of either conditions on the joined ancilla range; else
+    None."""
+    nxt = sandwich_fold_parts(op, folded)
+    if nxt is None:
+        return None
+    a, nts, nas, nbs, mt, ma, mb = parts
+    a2, nts2, nas2, nbs2, mt2, ma2, mb2 = nxt
+    if a2 == a + len(nts):
+        lo, joined = a, (nts + nts2, nas + nas2, nbs + nbs2)
+    elif a2 + len(nts2) == a:
+        lo, joined = a2, (nts2 + nts, nas2 + nas, nbs2 + nbs)
+    else:
+        return None
+    hi = lo + len(joined[0])
+    for terms in joined[0] + (mt, mt2):
+        for conds in terms:
+            if any(lo <= p < hi for p, _ in conds):
+                return None
+    return (lo,) + joined + (mt + mt2, tuple(ma) + tuple(ma2), mb + mb2)
 
 
 def uniform_planes(num_qubits: int, folded,
@@ -411,30 +468,15 @@ def _apply_ops(re, im, ops, num_qubits: int):
         elif op[0] == "diag":
             _, terms, angles, base = op
             re, im = K.apply_diagonal_profile(re, im, terms, angles, base)
-        elif op[0] == "lane":
-            M = op[1]
-            re, im = K._lane_matmul_call(
-                re, im,
-                jnp.asarray(M.real.astype(np.float32)),
-                jnp.asarray(M.imag.astype(np.float32)),
-            )
-        elif op[0] == "row2":
+        elif op[0] == "2q":
             _, U4, q_lo = op
             re, im = K.apply_2q_row_pair(re, im, U4, q_lo)
+        elif op[0] == "lane":
+            re, im = K.apply_lane(re, im, op[1])
         elif op[0] == "sandwich":
             _, a, nt, na, nb, mt, ma, mb = op
             re, im = K.apply_hdh_sandwich(re, im, a, nt, na, nb,
                                           mt, ma, mb)
-        elif op[0] == "sandwich2":
-            _, a, nt1, na1, nb1, nt2, na2, nb2, mt, ma, mb = op
-            re, im = K.apply_hdh_sandwich_pair(
-                re, im, a, nt1, na1, nb1, nt2, na2, nb2, mt, ma, mb
-            )
-        elif op[0] == "sandwich4":
-            _, a, nts, nas, nbs, mt, ma, mb = op
-            re, im = K.apply_hdh_sandwich_quad(
-                re, im, a, nts, nas, nbs, mt, ma, mb
-            )
         elif op[0] == "sandwichk":
             _, a, nts, nas, nbs, mt, ma, mb = op
             re, im = K.apply_hdh_sandwich_multi(
@@ -459,7 +501,7 @@ def run_statevector(circuit: Circuit) -> Tuple[jax.Array, jax.Array]:
     nq = circuit.num_qubits
     if nq < 7:
         raise ValueError(
-            "TPU plane engine needs >= 7 qubits; use sim.dense below that"
+            "the plane engine needs >= 7 qubits; use sim.dense below that"
         )
     re, im = zero_planes(nq)
     re, im = _apply_ops(re, im, fuse_ops(circuit), nq)

@@ -1,7 +1,6 @@
 """Shared multilinear (Moebius) machinery.
 
-One home for the two code shapes previously duplicated across
-sim.analytic, ops.kernels and ops.sampler_kernel:
+One home for the two code shapes shared by sim.analytic and ops.kernels:
 
 * :func:`transform` — fast Moebius (finite-difference) transform of padded
   per-clique tables, turning value tables into multilinear coefficients;
@@ -9,9 +8,8 @@ sim.analytic, ops.kernels and ops.sampler_kernel:
   ``sum_s coef(s) * prod_{i in s} bits[i]`` with subset monomials built
   from their lowest-bit predecessor (each product computed once).
 
-Both are pure jnp / python and work identically on (…, K)-broadcast arrays
-(the XLA paths) and on Pallas in-kernel values (where ``coef`` reads come
-from SMEM refs).
+Both are pure jnp / python and work identically on any broadcastable
+arrays: (…, K)-broadcast state batches and the sweeps' low planes.
 """
 
 from __future__ import annotations
@@ -40,28 +38,13 @@ def transform(tab, cmax: int):
 def extract_bit_planes(x, variables, n: int):
     """0/1 float32 bit-plane per variable of state ids ``x`` (variable 0 =
     MSB convention; see qcmrf_tpu.utils.bits). Returns {var: plane} with
-    one plane per *unique* variable, shared across cliques. Each live
-    plane costs ``x.size * 4`` bytes of VMEM inside a Pallas kernel —
-    see :func:`vmem_block_rows`."""
+    one plane per *unique* variable, shared across cliques."""
     import jax.numpy as jnp
 
     return {
         v: ((x >> (n - 1 - v)) & 1).astype(jnp.float32)
         for v in sorted(set(variables))
     }
-
-
-def vmem_block_rows(num_planes: int, rows: int, lane: int = 128,
-                    budget_bytes: int = 12 * (1 << 20),
-                    max_block: int = 1024) -> int:
-    """Largest power-of-two block height keeping ``num_planes`` live
-    bit-planes (plus scratch/temporaries headroom) inside Mosaic's 16 MB
-    scoped-VMEM limit."""
-    cap = budget_bytes // ((num_planes + 8) * lane * 4)
-    block = max_block
-    while block > cap and block > 8:
-        block //= 2
-    return min(rows, block)
 
 
 def eval_multilinear(bits: List, m: int, coef: Callable[[int], object],

@@ -107,7 +107,7 @@ def render(backend: str, L_delta: np.ndarray, WH: Dict[float, List[float]],
 
 def main(argv=None) -> str:
     parser = argparse.ArgumentParser(
-        prog="Whisker plot for QCMRF success rate (TPU-native).",
+        prog="Whisker plot for QCMRF success rate.",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
     )
     parser.add_argument("--backend", type=str, default="simulation",
@@ -115,13 +115,11 @@ def main(argv=None) -> str:
     parser.add_argument("--res-root", type=str, default=".")
     parser.add_argument("--out", type=str, default=None)
     parser.add_argument("--platform", type=str, default="cpu",
-                        choices=["cpu", "tpu", "default"],
+                        choices=["cpu", "gpu", "default"],
                         help="Device for the evaluation math (CPU: the "
                              "suite models are tiny).")
     args = parser.parse_args(argv)
 
-    # hang-proof platform selection (utils/device.py): 'tpu'/'default'
-    # probe the accelerator with a bounded out-of-process check
     from qcmrf_tpu.utils.device import resolve_platform
     resolve_platform(args.platform, prog="qcmrf_tpu whisker")
 

@@ -85,13 +85,14 @@ def test_infer_explain_flag(capsys):
 
 
 def test_infer_explain_never_probes(monkeypatch):
-    # --explain is host-side: even with a blackholed device probe and a
-    # huge model it must answer instantly (no backend init anywhere)
+    # --explain is host-side: even for a huge model it must answer
+    # without selecting a platform (no backend init anywhere)
     from qcmrf_tpu.utils import device as udevice
 
-    monkeypatch.setattr(udevice, "_backends_initialized", lambda: False)
-    monkeypatch.setenv("QCMRF_CLI_PROBE_CODE", "import time; time.sleep(30)")
-    monkeypatch.setenv("QCMRF_CLI_PROBE_TIMEOUT", "1")
+    def refuse(*a, **k):
+        raise AssertionError("--explain resolved a platform")
+
+    monkeypatch.setattr(udevice, "resolve_platform", refuse)
     r = infer_cli.main(["--graph", "chain:40", "--query", "lnz",
                         "--explain"])
     assert r["n"] == 40 and r["selected"] == "elimination"

@@ -1,16 +1,17 @@
-"""Fused whole-circuit kernel vs the dense engine (interpret mode)."""
+"""The vmapped dense suite path (sim.batch.batched_circuit_probs) vs the
+per-circuit dense engine."""
 
 import numpy as np
 import pytest
 
 from qcmrf_tpu.circuits.compiler import compile_qcmrf
 from qcmrf_tpu.models.mrf import MRF
-from qcmrf_tpu.ops import circuit_kernel
+from qcmrf_tpu.sim import batch as circuit_kernel
 from qcmrf_tpu.sim import dense
 
 
 GRAPHS = [
-    [[0]],                              # width 3 (padded to 7)
+    [[0]],                              # width 3
     [[0, 1]],                           # width 4
     [[0, 1], [1, 2], [2, 3]],           # width 8
     [[0, 1, 2]],                        # width 5

@@ -26,28 +26,42 @@ def test_config_mesh():
     assert Config(mesh_shape=()).make_mesh() is None
 
 
-def test_compilation_cache_helper(tmp_path, monkeypatch):
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compilation_cache_helper(tmp_path, monkeypatch, env_set):
+    """JAX_COMPILATION_CACHE_DIR wins when set; otherwise the cache goes
+    to the fixed, git-ignored directory in the checkout on an
+    accelerator, and stays off on the CPU."""
+    import os
+
     import jax
 
-    from qcmrf_tpu.utils.config import enable_compilation_cache
+    from qcmrf_tpu.utils import config as ucfg
+
+    # the default is a fixed path in the checkout, git-ignored
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert ucfg.CHECKOUT_CACHE_DIR == os.path.join(root, ".jax_cache")
+    with open(os.path.join(root, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()
 
     prev = jax.config.jax_compilation_cache_dir
     prev_min = jax.config.jax_persistent_cache_min_compile_time_secs
     try:
-        monkeypatch.setenv("QCMRF_CACHE_DIR", str(tmp_path / "c"))
-        enable_compilation_cache()
-        assert jax.config.jax_compilation_cache_dir == str(tmp_path / "c")
-        assert (tmp_path / "c").is_dir()
-        # opt-out sentinel leaves the current setting untouched
-        monkeypatch.setenv("QCMRF_CACHE_DIR", "0")
-        enable_compilation_cache()
-        assert jax.config.jax_compilation_cache_dir == str(tmp_path / "c")
-        # with no explicit dir, the CPU backend is gated off (XLA:CPU AOT
-        # reload can SIGILL on machine-feature mismatch) — the setting is
-        # left untouched rather than pointed at the default path
-        monkeypatch.delenv("QCMRF_CACHE_DIR")
-        enable_compilation_cache()
-        assert jax.config.jax_compilation_cache_dir == str(tmp_path / "c")
+        if env_set:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR",
+                               str(tmp_path / "c"))
+            assert ucfg.enable_compilation_cache() == str(tmp_path / "c")
+            assert jax.config.jax_compilation_cache_dir == str(
+                tmp_path / "c")
+        else:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            assert ucfg.enable_compilation_cache() is None  # CPU: off
+            monkeypatch.setattr(ucfg, "CHECKOUT_CACHE_DIR",
+                                str(tmp_path / "checkout" / ".jax_cache"))
+            monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+            got = ucfg.enable_compilation_cache()
+            assert got == str(tmp_path / "checkout" / ".jax_cache")
+            assert os.path.isdir(got)
+            assert jax.config.jax_compilation_cache_dir == got
     finally:
         jax.config.update("jax_compilation_cache_dir", prev)
         jax.config.update("jax_persistent_cache_min_compile_time_secs",

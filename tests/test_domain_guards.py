@@ -1,4 +1,4 @@
-"""Domain guards added by review: theta > 0 and kernel size limits must
+"""Domain guards: theta > 0 and size limits must
 raise loudly instead of silently producing wrong distributions."""
 
 import numpy as np
@@ -25,7 +25,7 @@ def test_positive_theta_rejected_at_sampling_entry_points():
 
 
 def test_positive_theta_rejected_in_circuit_kernel():
-    from qcmrf_tpu.ops import circuit_kernel
+    from qcmrf_tpu.sim import batch as circuit_kernel
 
     with pytest.raises(ValueError, match="theta"):
         circuit_kernel.batched_circuit_probs(
@@ -33,10 +33,10 @@ def test_positive_theta_rejected_in_circuit_kernel():
 
 
 def test_circuit_kernel_width_guard():
-    from qcmrf_tpu.ops import circuit_kernel
+    from qcmrf_tpu.sim import batch as circuit_kernel
 
-    # 8 vars + 9 cliques -> width 18 > _MAX_WIDTH
-    cliques = [[i, i + 1] for i in range(8)] + [[0, 7]]
+    # 11 vars + 11 cliques -> width 23 > MAX_SUITE_WIDTH
+    cliques = [[i, i + 1] for i in range(10)] + [[0, 10]]
     dim = 4 * len(cliques)
     with pytest.raises(ValueError, match="width"):
         circuit_kernel.batched_circuit_probs(

@@ -2,7 +2,7 @@
 
 The strongest correctness statement in the suite: arbitrary gate sequences
 (not just QCMRF-shaped) through the dense complex engine, the basis-gate
-lowering, the TPU real/imag-plane engine (interpret mode), and the sharded
+lowering, the real/imag-plane engine, and the sharded
 engine (4-device mesh) all produce the same statevector.
 """
 

@@ -1,4 +1,4 @@
-"""Pallas kernels vs the jnp reference implementations (interpret mode)."""
+"""Sweeps and plane passes vs the reference implementations."""
 
 import numpy as np
 import pytest
@@ -188,19 +188,17 @@ def test_log_partition_fused_random_structures():
         assert abs(fused - ref) < 5e-4, (trial, cliques, fused, ref)
 
 
-@pytest.mark.parametrize("block_rows", [8, 16])
-def test_split_logpot_multiblock(block_rows):
-    """Multi-block streaming sweep with HIGH and CROSSING cliques.
+@pytest.mark.parametrize("geom", [(8, 10), (7, 9)])
+def test_split_logpot_multiblock(geom):
+    """Multi-tile streaming sweep with HIGH and CROSSING cliques.
 
-    The production block size keeps small-n sweeps in ONE block, where
-    every clique is block-low and _split_logpot's high/cross paths never
-    execute on the CPU suite — so drive the LSE loop kernel directly at
-    a forced small block (n=12 grid, 32/16 blocks: the cut crosses
-    several edges and whole columns land in the high bits), plus a
-    nonzero x0 mimicking a sharded device slice."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
+    The production geometry keeps small-n sweeps in ONE tile, where
+    every clique is low and _split_logpot's high/cross paths never
+    execute in the CPU tests — so drive the lnZ sweep directly at a
+    forced small geometry (n=12 grid: the low-plane cut crosses several
+    edges and whole columns land in the high bits), plus a nonzero tile
+    offset mimicking a sharded device slice."""
+    lo_bits, tile_bits = geom
     g = grid_mrf(3, 4)
     rng = np.random.RandomState(5)
     m = g.with_theta(jnp.asarray(
@@ -210,32 +208,22 @@ def test_split_logpot_multiblock(block_rows):
     full = np.asarray(m.beta * m.all_log_potentials())
 
     for x0_states, num_states in ((0, 1 << m.n), (1 << 11, 1 << 11)):
-        rows = num_states // 128
-        kernel = kernels._build_lse_loop_kernel(
-            m.cliques, m.n, block_rows, rows // block_rows)
-        x0b = x0_states // (block_rows * 128)
-        out = pl.pallas_call(
-            kernel,
-            out_shape=jax.ShapeDtypeStruct((8, 128), jnp.float32),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-            interpret=True,
-        )(coef, beta, jnp.full((1,), x0b, jnp.int32))
-        got = float(kernels._combine_lse(out[0], out[1]))
+        x0b = x0_states >> tile_bits
+        ms, ss = kernels._lse_partials_call(
+            m.cliques, m.n, num_states, coef, beta,
+            jnp.full((1,), x0b, jnp.int32), lo_bits, tile_bits)
+        got = float(kernels._combine_lse(ms, ss))
         ref = full[x0_states:x0_states + num_states]
         want = float(np.log(np.exp(ref - ref.max()).sum()) + ref.max())
-        assert abs(got - want) < 5e-4, (block_rows, x0_states, got, want)
+        assert abs(got - want) < 5e-4, (geom, x0_states, got, want)
 
 
 def test_split_logpot_past_int32_state_ids():
     """Block-unit bases keep the streaming sweep inside int32 past the
     2^31-state-id limit: an n=34 chain slice starting beyond 2^33 must
     match an int64 numpy enumeration of the same states. (The full n=34
-    sweep runs on the real chip only; this pins the >int32 bit
-    arithmetic that enables it.)"""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
+    sweep runs on the card; this pins the >int32 bit arithmetic that
+    enables it.)"""
     n = 34
     cliques = [[i, i + 1] for i in range(n - 1)]
     rng = np.random.RandomState(9)
@@ -244,20 +232,13 @@ def test_split_logpot_past_int32_state_ids():
     coef = kernels._moebius_coefficients(m)
     beta = jnp.reshape(jnp.asarray(m.beta, jnp.float32), (1,))
 
-    block_rows, num_states = 8, 1 << 12  # 4 blocks of 2^10 states
+    lo_bits, tile_bits, num_states = 8, 10, 1 << 12  # 4 tiles
     x0_states = (1 << 33) + (1 << 31) + 5 * (1 << 12)  # > int32 max
-    x0b = x0_states // (block_rows * 128)
-    kernel = kernels._build_lse_loop_kernel(
-        tuple(tuple(C) for C in m.cliques), n, block_rows,
-        (num_states // 128) // block_rows)
-    out = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((8, 128), jnp.float32),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        interpret=True,
-    )(coef, beta, jnp.full((1,), x0b, jnp.int32))
-    got = float(kernels._combine_lse(out[0], out[1]))
+    ms, ss = kernels._lse_partials_call(
+        tuple(tuple(C) for C in m.cliques), n, num_states, coef, beta,
+        jnp.full((1,), x0_states >> tile_bits, jnp.int32),
+        lo_bits, tile_bits)
+    got = float(kernels._combine_lse(ms, ss))
 
     # int64 host reference over the same slice
     x = np.arange(x0_states, x0_states + num_states, dtype=np.int64)
@@ -278,11 +259,8 @@ def test_split_logpot_past_int32_state_ids():
 
 def test_map_state_streaming_matches_table():
     """Streaming argmax == table argmax (value and id) on structures the
-    table path can enumerate, including a forced multi-block sweep so
-    block-boundary carry logic executes."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
+    table path can enumerate, including a forced multi-tile sweep so
+    tile-boundary carry logic executes."""
     from qcmrf_tpu.models.sample import map_state
 
     for seed, cliques in ((3, [[0, 1], [1, 2], [2, 3], [3, 4], [4, 5],
@@ -297,35 +275,25 @@ def test_map_state_streaming_matches_table():
         assert got_id == want_id
         assert abs(got_val - want_val) < 1e-4
 
-        # forced 4-block sweep through the builder (production picks one
-        # block at this n, skipping the cross-block carry)
+        # forced 8-tile sweep (production picks one tile at this n,
+        # skipping the cross-tile carry)
         coef = kernels._moebius_coefficients(m)
         beta = jnp.reshape(jnp.asarray(m.beta, jnp.float32), (1,))
-        block_rows = 8
-        kernel = kernels._build_map_loop_kernel(
-            tuple(tuple(C) for C in m.cliques), m.n, block_rows,
-            ((1 << m.n) // 128) // block_rows)
-        out = np.asarray(pl.pallas_call(
-            kernel,
-            out_shape=jax.ShapeDtypeStruct((8, 128), jnp.float32),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)] * 3,
-            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-            interpret=True,
-        )(coef, beta, jnp.zeros((1,), jnp.int32)))
-        lane = int(np.argmax(out[0]))
-        state = ((int(out[1, lane]) * block_rows + int(out[2, lane]))
-                 * 128 + lane)
+        out = kernels._map_partials_call(
+            tuple(tuple(C) for C in m.cliques), m.n, 1 << m.n, coef, beta,
+            jnp.zeros((1,), jnp.int32), 7, 9)
+        state, val = kernels.map_partials_decode(
+            m.cliques, m.n, 1 << m.n, out, tile_bits=9)
         assert state == want_id
-        assert abs(float(out[0, lane]) - want_val) < 1e-4
+        assert abs(val - want_val) < 1e-4
 
 
 def test_row_gate_high_qubit_stride_tiling():
-    """apply_1q on a high row qubit exercises the stride-axis tiling
-    (stride_rows > 256): without it the VMEM block grows with 2^(q-7)
-    and fails Mosaic compile at n >= 21 on hardware."""
+    """apply_1q on a high qubit: a 2^16-element stride between the
+    paired amplitudes."""
     import jax.numpy as jnp
 
-    n, q = 17, 16  # stride 512 -> two stride tiles of 256
+    n, q = 17, 16
     rows = (1 << n) // 128
     rng = np.random.RandomState(2)
     re = jnp.asarray(rng.randn(rows, 128).astype(np.float32))
@@ -353,28 +321,30 @@ def test_map_state_streaming_small_n_dense_fallback():
     assert abs(got_val - float(lp.max())) < 1e-5
 
 
-def test_loop_block_rows_budgets_split_invariants():
-    """The loop-kernel block pick must budget the split kernel's ACTUAL
-    live planes: crossing cliques carry 2^|low-slots|-1 loop-invariant
-    monomial planes each, which the distinct-variable count misses for
-    higher-order cliques (round-4 review finding)."""
-    from qcmrf_tpu.utils import moebius
-
-    # eight 5-cliques, each one high variable + four low variables at
-    # any plausible cut: 15 monomial planes per clique
+def test_sweep_geometry_contract():
+    """The sharded callers' tile-unit offsets and the MAP id decoding
+    rest on one geometry: low plane <= tile <= swept states, and both
+    sweeps report the same tile size."""
     n = 26
     cliques = tuple(
         (h, 12 + h, 13 + h, 14 + h, 15 + h) for h in range(8)
     )
-    rows = (1 << n) // 128
-    naive = kernels._pick_block_rows(cliques, rows)
-    block = kernels._pick_loop_block_rows(cliques, n, rows)
-    planes = kernels._split_live_planes(cliques, n, block)
-    # the chosen block fits its own live-plane count...
-    assert block <= moebius.vmem_block_rows(planes, rows)
-    # ...and the naive pick would NOT have (the fix is load-bearing)
-    naive_planes = kernels._split_live_planes(cliques, n, naive)
-    assert naive > moebius.vmem_block_rows(naive_planes, rows)
-    # consistency contract: the sharded caller's block-unit conversion
-    # must match the kernel's internal pick
-    assert kernels.lse_block_states(cliques, n, 1 << n) == block * 128
+    L, T = kernels.sweep_geometry(1 << n)
+    assert L == kernels._LO_BITS and T == kernels._TILE_BITS
+    assert kernels.lse_block_states(cliques, n, 1 << n) == 1 << T
+    assert kernels.map_block_states(cliques, n, 1 << n) == 1 << T
+    # small sweeps shrink to fit, one tile
+    assert kernels.sweep_geometry(1 << 12) == (12, 12)
+    # overrides keep L <= T
+    assert kernels.sweep_geometry(1 << 20, lo_bits=9, tile_bits=8) == (8, 8)
+
+
+def test_interpret_only_on_cpu(monkeypatch):
+    """Pallas kernels interpret on the CPU (the tests) and nowhere else:
+    on a GPU they are compiled for the card."""
+    import jax
+    from qcmrf_tpu.ops import _common
+
+    assert _common.interpret()
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert not _common.interpret()

@@ -190,40 +190,29 @@ def test_streaming_moments_repeated_variable_cliques():
     np.testing.assert_allclose(got, mu, rtol=1e-5, atol=1e-6)
 
 
-def test_gram_kernel_path_matches_elimination(monkeypatch):
-    """Pairwise structures route through the Pallas weighted-Gram kernel
-    (interpreted on CPU): n=14 spans 4 kernel blocks with 2 block-level
-    bits, so both the in-block and block-index shift rows are live. The
-    XLA sweep (the wide/higher-order fallback) must agree exactly."""
+def test_gram_kernel_path_matches_elimination():
+    """Pairwise structures through the weighted-Gram sweep: a cyclic
+    n=14 structure with chords, every pair a Gram entry."""
     cl = ([[i, (i + 1) % 14] for i in range(14)]
           + [[0, 7], [3, 10], [5, 12]])
     mrf = _random_mrf(cl, seed=11, beta=1.2)
     gram = moments._gram_layout(mrf.cliques)
-    assert moments._use_gram_kernel(gram, mrf.n, 1 << mrf.n)
+    assert gram.pair_g.size == len(cl) and gram.hi_g.size == 0
 
     got = np.asarray(moments.clique_moments_streaming(mrf))
     want = np.asarray(ve.clique_marginals(mrf))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
-    monkeypatch.setattr(moments, "_use_gram_kernel",
-                        lambda *a, **k: False)
-    xla = np.asarray(moments.clique_moments_streaming(mrf))
-    np.testing.assert_allclose(got, xla, rtol=1e-5, atol=1e-6)
 
-
-def test_gram_kernel_higher_order_cliques(monkeypatch):
-    """Size-3/4 cliques route through the Gram kernel via PRODUCT lanes
-    (the in-kernel selector relayout B' = (B S1) * (B S2)): every
-    monomial of <= 4 distinct variables is one Gram entry of the
-    augmented lanes. Pinned against elimination and against the XLA
-    fallback; > 4 distinct variables must set kernel_ok = False and
-    still compute through the fallback."""
+def test_gram_kernel_higher_order_cliques():
+    """Size-3/4 cliques add product columns (``hi_cols``) beside the
+    Gram entries; pinned against elimination, through both the moment
+    sweep and the (lnZ, moments) pair."""
     cl = ([[i, i + 1] for i in range(13)]
           + [[0, 5, 9], [2, 7, 11], [1, 4, 8, 12]])
     mrf = _random_mrf(cl, seed=15, beta=1.2)
     gram = moments._gram_layout(mrf.cliques)
-    assert gram.kernel_ok and len(gram.prod_src) > 0
-    assert moments._use_gram_kernel(gram, mrf.n, 1 << mrf.n)
+    assert len(gram.hi_cols) > 0
 
     got = np.asarray(moments.clique_moments_streaming(mrf))
     want = np.asarray(ve.clique_marginals(mrf))
@@ -233,23 +222,14 @@ def test_gram_kernel_higher_order_cliques(monkeypatch):
     assert np.isclose(float(lnZ), float(mrf.log_partition()), rtol=1e-6)
     np.testing.assert_allclose(np.asarray(mu), want, rtol=1e-5, atol=1e-6)
 
-    monkeypatch.setattr(moments, "_use_gram_kernel",
-                        lambda *a, **k: False)
-    xla = np.asarray(moments.clique_moments_streaming(mrf))
-    np.testing.assert_allclose(got, xla, rtol=1e-5, atol=1e-6)
-
 
 def test_gram_kernel_repeated_vars_in_higher_order_clique():
     """A 4-slot clique with a repeated variable ([0, 1, 1, 2]) collapses
-    to 3 distinct variables (b^2 = b) — still kernel-expressible through
-    one product lane; oracle is brute-force enumeration (elimination
-    cannot build repeated-variable scopes)."""
+    to 3 distinct variables (b^2 = b); oracle is brute-force enumeration
+    (elimination cannot build repeated-variable scopes)."""
     cl = ([[0, 1, 1, 2], [2, 3], [3, 4, 4]]
           + [[i, i + 1] for i in range(4, 13)])
     mrf = _random_mrf(cl, seed=16, beta=1.1)
-    gram = moments._gram_layout(mrf.cliques)
-    assert gram.kernel_ok
-    assert moments._use_gram_kernel(gram, mrf.n, 1 << mrf.n)
     got = np.asarray(moments.clique_moments_streaming(mrf))
 
     p = np.asarray(mrf.gibbs_probs(), np.float64)
@@ -266,28 +246,23 @@ def test_gram_kernel_repeated_vars_in_higher_order_clique():
 
 
 def test_gram_layout_kernel_ok_gate():
-    """5+ distinct variables in one clique cannot factor into two lanes:
-    kernel_ok goes False and the sweep still computes via the fallback."""
+    """5+ distinct variables in one clique: the size >= 3 subsets become
+    product columns (one per subset) and the sweep still matches."""
     gram = moments._gram_layout(((0, 1, 2, 3, 4),))
-    assert not gram.kernel_ok
+    assert len(gram.hi_cols) == 16  # C(5,3) + C(5,4) + C(5,5)
     mrf = _random_mrf([[0, 1, 2, 3, 4], [4, 5], [5, 6]], seed=17)
-    assert not moments._use_gram_kernel(
-        moments._gram_layout(mrf.cliques), mrf.n, 1 << mrf.n)
     got = np.asarray(moments.clique_moments_streaming(mrf))
     want = np.asarray(ve.clique_marginals(mrf))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
 def test_fused_lnz_and_moments_matches_two_sweep():
-    """The single-sweep (lnZ, moments) kernel (flash-style running-max
-    accumulation) must match the two-sweep pair on a Gram-eligible
-    pairwise structure, and fall back to it for higher-order cliques."""
+    """The (lnZ, moments) pair must match the separate lnZ and moment
+    sweeps on a pairwise structure and on higher-order cliques."""
     from qcmrf_tpu.ops import kernels as K
 
     cl = [[i, (i + 1) % 12] for i in range(12)] + [[2, 9]]
     mrf = _random_mrf(cl, seed=13, beta=1.4)
-    gram = moments._gram_layout(mrf.cliques)
-    assert moments._use_gram_kernel(gram, mrf.n, 1 << mrf.n)
 
     lnZ_ref = float(K.log_partition(mrf))
     mu_ref = np.asarray(moments.clique_moments_streaming(mrf))
@@ -296,11 +271,9 @@ def test_fused_lnz_and_moments_matches_two_sweep():
     np.testing.assert_allclose(np.asarray(mu), mu_ref,
                                rtol=1e-5, atol=1e-6)
 
-    # higher-order structure: same API through the two-sweep fallback
+    # higher-order structure: same API
     cl3 = [[0, 1, 2], [2, 3], [3, 4, 5]]
     mrf3 = _random_mrf(cl3, seed=14)
-    assert not moments._use_gram_kernel(
-        moments._gram_layout(mrf3.cliques), mrf3.n, 1 << mrf3.n)
     lnZ3, mu3 = moments.lnz_and_moments_streaming(mrf3)
     assert np.isclose(float(lnZ3), float(mrf3.log_partition()), rtol=1e-5)
     np.testing.assert_allclose(
@@ -499,13 +472,11 @@ def test_clamped_streaming_validates_evidence():
 
 
 def test_gram_kernel_grad_through_custom_vjp():
-    """The kernel-backed moment sweep is the custom-VJP gradient of the
-    streaming lnZ: value and grad must match autodiff through the 2^n
-    table at a kernel-eligible width."""
+    """The moment sweep is the custom-VJP gradient of the streaming lnZ:
+    value and grad must match autodiff through the 2^n table at a
+    sweep-path width."""
     cl = [[i, i + 1] for i in range(11)] + [[0, 11]]
     mrf = _random_mrf(cl, seed=12, beta=0.9)
-    gram = moments._gram_layout(mrf.cliques)
-    assert moments._use_gram_kernel(gram, mrf.n, 1 << mrf.n)
 
     def stream(theta):
         return moments.log_partition_streaming(mrf.with_theta(theta))

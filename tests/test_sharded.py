@@ -454,17 +454,15 @@ def test_multi_axis_mesh_flattened():
 
 
 def test_sharded_clique_moments_gram_kernel_path(mesh8):
-    """A kernel-eligible pairwise model over the 8-device mesh: each
-    device sweeps its slice with the weighted-Gram kernel (device bits
-    arrive through the block-index shift row) and one psum combines the
-    monomial partials. Must match elimination and the single-chip sweep."""
+    """A pairwise model over the 8-device mesh: each device sweeps its
+    slice with the weighted-Gram sweep (device bits arrive through the
+    block index) and one psum combines the monomial partials. Must match
+    elimination and the single-device sweep."""
     from qcmrf_tpu.models import elimination as ve
     from qcmrf_tpu.models import moments
 
     cl = [[i, (i + 1) % 12] for i in range(12)] + [[0, 6]]
     mrf = rand_mrf(cl, seed=19, scale=0.5)
-    gram = moments._gram_layout(mrf.cliques)
-    assert moments._use_gram_kernel(gram, mrf.n, 1 << (mrf.n - 3))
 
     got = np.asarray(sharded.sharded_clique_moments(mrf, mesh8))
     np.testing.assert_allclose(
@@ -474,18 +472,15 @@ def test_sharded_clique_moments_gram_kernel_path(mesh8):
 
 
 def test_sharded_fused_lnz_and_moments(mesh8):
-    """The FUSED sharded (lnZ, moments) sweep — per-device running-max
-    Gram kernel, one pmax + one psum of rescaled partials — must match
-    the two-sweep references and the single-chip fused sweep; the
-    sharded lnZ gradient must route through it."""
+    """The sharded (lnZ, moments) pair must match the references and the
+    single-device pair; the sharded lnZ gradient must route through
+    it."""
     from qcmrf_tpu.models import elimination as ve
     from qcmrf_tpu.models import moments
     from qcmrf_tpu.ops import kernels as K
 
     cl = [[i, (i + 1) % 12] for i in range(12)] + [[0, 6], [3, 9]]
     mrf = rand_mrf(cl, seed=23, scale=0.6)
-    gram = moments._gram_layout(mrf.cliques)
-    assert moments._use_gram_kernel(gram, mrf.n, 1 << (mrf.n - 3))
 
     lnZ, mu = sharded.sharded_lnz_and_moments(mrf, mesh8)
     assert np.isclose(float(lnZ), float(K.log_partition(mrf)), rtol=1e-6)
@@ -505,13 +500,10 @@ def test_sharded_fused_lnz_and_moments(mesh8):
     np.testing.assert_allclose(
         np.asarray(g), mrf.beta * np.asarray(mu), rtol=1e-5, atol=1e-6)
 
-    # size-3 cliques at kernel-eligible width: the product-lane relayout
-    # runs inside each device's kernel sweep
+    # size-3 cliques: product columns beside the Gram entries
     cl3 = [[i, (i + 1) % 12] for i in range(12)] + [[0, 4, 8], [1, 5, 9]]
     mrf3 = rand_mrf(cl3, seed=24, scale=0.5)
-    gram3 = moments._gram_layout(mrf3.cliques)
-    assert gram3.kernel_ok and len(gram3.prod_src) > 0
-    assert moments._use_gram_kernel(gram3, mrf3.n, 1 << (mrf3.n - 3))
+    assert len(moments._gram_layout(mrf3.cliques).hi_cols) > 0
     lnZ3, mu3 = sharded.sharded_lnz_and_moments(mrf3, mesh8)
     assert np.isclose(float(lnZ3), float(K.log_partition(mrf3)),
                       rtol=1e-6)
@@ -519,7 +511,7 @@ def test_sharded_fused_lnz_and_moments(mesh8):
         np.asarray(mu3), np.asarray(ve.clique_marginals(mrf3)),
         rtol=1e-5, atol=1e-6)
 
-    # > 4 distinct vars: same API through the two-sweep fallback
+    # > 4 distinct vars in one clique: same API
     mrf5 = rand_mrf([[0, 1, 2, 3, 4], [4, 5], [5, 6]], seed=25)
     lnZ5, mu5 = sharded.sharded_lnz_and_moments(mrf5, mesh8)
     assert np.isclose(float(lnZ5), float(mrf5.log_partition()), rtol=1e-5)

@@ -1,4 +1,4 @@
-"""TPU plane engine (interpret mode on CPU) vs the dense complex engine."""
+"""The real/imag plane engine (sim.tpu) vs the dense complex engine."""
 
 import numpy as np
 import pytest
@@ -54,7 +54,7 @@ def test_qcmrf_circuit_probs(cliques):
 
 
 def test_lowered_circuit_runs_on_plane_engine():
-    """Basis-gate circuits (cx/rz/sx/x) also run on the TPU engine."""
+    """Basis-gate circuits (cx/rz/sx/x) also run on the plane engine."""
     mrf = rand_mrf([[0, 1], [1, 2], [2, 3]], seed=5)
     circ = lower(compile_qcmrf(mrf), style="fused")
     got = np.asarray(stpu.simulate_probs(circ))
@@ -69,33 +69,49 @@ def test_small_circuit_rejected():
         stpu.run_statevector(c)
 
 
-@pytest.mark.parametrize("precision", ["DEFAULT", "HIGH", "HIGHEST"])
-def test_lane_matmul_precision_plumbing(precision):
-    """The lane-gate matmul accepts an MXU precision (LANE_PRECISION =
-    HIGH by default: 3 bf16 passes, ~2^-16 relative per apply — half
-    HIGHEST's MXU work; VERDICT round-3 item 5). CPU f32 matmuls are
-    exact at every precision, so here each level must agree with the
-    brute-force embedding exactly; the on-chip error/rate trade is
-    measured by bench.py (lane_err_* / gate_lane_*_gbps)."""
-    import jax
+@pytest.mark.parametrize("q", [0, 3, 6])
+def test_lane_qubit_butterflies_match_dense(q):
+    """Gates on the low (lane) qubits are strided butterflies like any
+    other qubit: a composed 1q gate and an adjacent pair, checked
+    against the dense engine at three qubit positions."""
     from qcmrf_tpu.ops import kernels as K
 
-    rng = np.random.RandomState(11)
-    nq = 8
-    re = jnp.asarray(rng.randn(2, 128).astype(np.float32))
-    im = jnp.asarray(rng.randn(2, 128).astype(np.float32))
-    H = dense.GATES_1Q["h"]
-    M = K._lane_gate_matrix(np.asarray(H, np.complex64), 3)
-    r, i = K._lane_matmul_call(
-        re, im,
-        jnp.asarray(M.real.astype(np.float32)),
-        jnp.asarray(M.imag.astype(np.float32)),
-        getattr(jax.lax.Precision, precision),
-    )
-    want = (to_complex(re, im).reshape(2, 128)) @ M.T
-    np.testing.assert_allclose(
-        to_complex(r, i), want.reshape(-1), atol=1e-5
-    )
+    rng = np.random.RandomState(11 + q)
+    nq = 9
+    vec = rng.randn(1 << nq) + 1j * rng.randn(1 << nq)
+    vec = (vec / np.linalg.norm(vec)).astype(np.complex64)
+    re = jnp.asarray(vec.real.reshape(-1, 128))
+    im = jnp.asarray(vec.imag.reshape(-1, 128))
+    U = np.asarray(dense.GATES_1Q["sx"] @ dense.GATES_1Q["h"])
+    r, i = K.apply_1q(re, im, U, q, nq)
+    want = dense.apply_1q(jnp.asarray(vec), U, q, nq)
+    np.testing.assert_allclose(to_complex(r, i), np.asarray(want),
+                               atol=1e-5)
+    U4 = np.kron(dense.GATES_1Q["h"], dense.GATES_1Q["sx"])
+    r, i = K.apply_2q_row_pair(re, im, U4, q)
+    want = dense.apply_2q(jnp.asarray(vec), U4, q + 1, q, nq)
+    np.testing.assert_allclose(to_complex(r, i), np.asarray(want),
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("qubits,kinds", [
+    ((0, 1, 2, 3), ["2q", "2q"]),
+    ((0, 1, 2, 3, 4), ["lane"]),
+    ((0, 2, 3, 4, 5, 6, 1, 0), ["lane"]),
+])
+def test_low_qubit_runs_pick_passes_or_lane_dot(qubits, kinds):
+    """A run of 1q gates on the low qubits stays strided passes up to
+    four qubits and becomes one 128x128 dot from five on (the measured
+    crossover); both match the dense engine."""
+    c = Circuit(9)
+    for q in qubits:
+        c.sx(q)
+    c.rz(0.3, 8)
+    ops = stpu.fuse_ops(c)
+    assert [o[0] for o in ops[:-1]] == kinds and ops[-1][0] == "diag"
+    got = to_complex(*stpu.run_statevector(c))
+    want = np.asarray(dense.run_statevector(c))
+    np.testing.assert_allclose(got, want, atol=1e-5)
 
 
 # --------------------------------------------------------------------------
@@ -104,12 +120,11 @@ def test_lane_matmul_precision_plumbing(precision):
 
 
 def test_fuse_ops_emits_sandwiches():
-    """The H wall folds into one closed-form init, row-qubit clique
-    blocks collapse to ONE sandwich pass each, runs of ADJACENT-ancilla
-    sandwiches group into one multi pass (up to kernels._MAX_SANDWICH_K
+    """The H wall folds into one closed-form init, clique blocks
+    collapse to ONE sandwich op each, runs of ADJACENT-ancilla
+    sandwiches group into one multi op (up to kernels._MAX_SANDWICH_K
     ancillas), and the leading group absorbs the uniform init as a
-    write-only sandwichku; lane-qubit ancillas (a < 7) keep the unfused
-    3-pass form."""
+    write-only sandwichku, which later adjacent groups join."""
     mrf = rand_mrf([[i, i + 1] for i in range(6)], seed=1)  # width 15
     ops = stpu.fuse_ops(compile_qcmrf(mrf, with_measurements=False))
     kinds = [o[0] for o in ops]
@@ -119,15 +134,19 @@ def test_fuse_ops_emits_sandwiches():
     assert kinds == ["sandwichku"] and ops[0][1] == tuple(range(7))
     assert len(ops[0][3]) == 6  # all 6 clique profiles in one group
 
-    # width 10: ancillas sit at qubits 6..9 — the a=6 block must stay
-    # unfused (lane qubit), a=(7,8,9) group into one 3-ancilla pass
+    # width 10: ancillas sit at qubits 6..9 — all four join the fold
     mrf10 = rand_mrf([[0, 1], [1, 2], [2, 3], [3, 4]], seed=2)
     ops10 = stpu.fuse_ops(compile_qcmrf(mrf10, with_measurements=False))
-    kinds10 = [o[0] for o in ops10]
-    assert kinds10[0] == "init_uniform"
-    assert kinds10.count("sandwichk") == 1
-    assert kinds10.count("sandwich") == 0
-    assert kinds10.count("diag") == 1
+    assert [o[0] for o in ops10] == ["sandwichku"]
+    assert ops10[0][2] == 6 and len(ops10[0][3]) == 4
+
+    # more cliques than one read-write group holds: the groups after the
+    # first join the write-only fold instead of costing passes of their own
+    k = stpu.K._MAX_SANDWICH_K
+    chain = rand_mrf([[i, i + 1] for i in range(k + 2)], seed=3)
+    opsk = stpu.fuse_ops(compile_qcmrf(chain, with_measurements=False))
+    assert [o[0] for o in opsk] == ["sandwichku"]
+    assert len(opsk[0][3]) == k + 2
 
 
 def test_sandwich_kernel_general_profiles():
@@ -317,3 +336,19 @@ def test_sandwich_matches_unfused_statevector():
     want = to_complex(re, im)
     got = to_complex(*stpu.run_statevector(circ))
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_plane_engine_on_card(gpu):
+    """On the card the plane passes compile for the GPU and the engine
+    matches the dense complex engine, as chip_smoke's gate phase does at
+    full width."""
+    import jax
+
+    assert jax.default_backend() == "gpu"
+    mrf = rand_mrf([[i, i + 1] for i in range(9)], seed=5)
+    circ = compile_qcmrf(mrf, with_measurements=False)
+    got = np.asarray(stpu.simulate_probs(circ))
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(dense.simulate_probs(circ))
+    np.testing.assert_allclose(got, want, atol=1e-6)

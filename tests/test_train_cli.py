@@ -1,4 +1,4 @@
-"""Train CLI: orbax checkpoint/resume, sharded mesh path, config files."""
+"""Train CLI: checkpoint/resume, sharded mesh path, config files."""
 
 import json
 import os
@@ -16,11 +16,12 @@ def _run(tmp, *extra):
 
 
 def test_checkpoint_resume_roundtrip(tmp_path):
-    """Resume must pick up at the newest orbax step and keep improving."""
+    """Resume must pick up at the newest checkpoint step and keep
+    improving."""
     _run(tmp_path, "--steps", "40", "--checkpoint-every", "20")
     with open(tmp_path / "fitted_model.json") as f:
         nll_40 = json.load(f)["final_nll"]
-    # orbax layout: numbered step dirs under ckpt/
+    # layout: numbered step dirs under ckpt/
     assert (tmp_path / "ckpt" / "40").is_dir()
 
     out = _run(tmp_path, "--steps", "80", "--checkpoint-every", "20",
